@@ -1,0 +1,268 @@
+"""`EngineConfig` / `YCHGResult` / `Engine` — the port's entry point.
+
+The counterpart of ``repro.engine.engine``. One engine owns one dispatch
+policy (backend selection, kernel knobs) and one torch device, and exposes
+three verbs, each taking ``op=`` to override the engine's default op:
+
+  * ``analyze(img)``         — one (H, W) mask, as a B=1 view of the batched
+                               path;
+  * ``analyze_batch(stack)`` — a (B, H, W) stack in one device computation;
+  * ``analyze_stream(it)``   — an iterable of masks or stacks, one result
+                               yielded per item.
+
+The engine runs on the card unless the caller asks for the CPU:
+``Engine()`` means ``device="cuda"`` and raises when there is no CUDA
+device; ``Engine(device="cpu")`` is the only way onto the CPU. The backend
+registry is asked for the engine's own device type (``"cpu"`` or
+``"cuda"``). Results stay on the device; ``.to_host()`` copies them out.
+
+Not in this slice: the mesh path, ``lower``, ``run_pipeline`` and the
+``YCHGEngine`` shim.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, Iterable, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.ychg import YCHGSummary
+from repro_torch.engine import ops as engine_ops
+from repro_torch.engine import registry
+
+Tensor = torch.Tensor
+
+_FIELDS = ("runs", "cut_vertices", "transitions", "births", "deaths",
+           "n_hyperedges", "n_transitions")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Frozen, hashable engine construction knobs.
+
+    The field names are those of the JAX ``YCHGConfig`` less ``interpret``,
+    which has no meaning on Hopper (``configs.ychg_modis.engine_config_from_jax``
+    maps one onto the other). The class name differs from the JAX one on
+    purpose: it is part of every service cache key, so the two packages'
+    workers never share cache entries.
+
+    backend            "auto" resolves per (op, device type) from the
+                       registry; or a registered name ("torch", "fused").
+    block_w            enters only the split-H routing rule (``kernels.ops``).
+    block_h            row segment of the split-H kernel.
+    dtype              optional dtype name masks are cast to on ingest
+                       (None = accept as-is; nonzero = foreground either way).
+    mesh_axis          batch axis name for a mesh (the mesh path is not
+                       ported yet).
+    stream_vmem_budget the reference's switch to its H-streamed kernel, kept
+                       so the port routes as the reference does.
+    """
+
+    backend: str = "auto"
+    block_w: int = 128
+    block_h: int = 2048
+    dtype: Optional[str] = None
+    mesh_axis: str = "data"
+    stream_vmem_budget: int = 4 * 1024 * 1024
+
+
+# the JAX package's historical spelling of the same knobs
+YCHGConfig = EngineConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class YCHGResult:
+    """Device-resident batched output of the two-step algorithm.
+
+    Tensors always carry the leading batch dim; a single image is a B=1
+    view. ``event`` is a CUDA event recorded after the work that produced
+    the tensors (None on the CPU), which ``block_until_ready`` waits on.
+    """
+
+    runs: Tensor           # (B, W) int32  step-1 per-column run counts
+    cut_vertices: Tensor   # (B, W) int32  2*runs
+    transitions: Tensor    # (B, W) bool   step-2 change signal
+    births: Tensor         # (B, W) int32
+    deaths: Tensor         # (B, W) int32
+    n_hyperedges: Tensor   # (B,)   int32  total births
+    n_transitions: Tensor  # (B,)   int32  number of transition columns
+    batched: bool = True
+    event: Optional[Any] = dataclasses.field(default=None, compare=False,
+                                             repr=False)
+
+    @property
+    def batch_size(self) -> int:
+        return self.runs.shape[0]
+
+    def block_until_ready(self) -> "YCHGResult":
+        if self.event is not None:
+            self.event.synchronize()
+        return self
+
+    def to_summary(self) -> YCHGSummary:
+        """``core.ychg.YCHGSummary`` view (squeezed to (W,)/() for B=1 input)."""
+        if self.batched:
+            return YCHGSummary(*(getattr(self, f) for f in _FIELDS))
+        return YCHGSummary(*(getattr(self, f)[0] for f in _FIELDS))
+
+    def to_host(self) -> Dict[str, np.ndarray]:
+        """Host NumPy values of every field, as the JAX package's ``to_host``."""
+        s = self.to_summary()
+        return {f: getattr(s, f).cpu().numpy() for f in _FIELDS}
+
+
+def record_event(device: torch.device) -> Optional[Any]:
+    """A CUDA event recorded now on ``device``'s current stream (None on the
+    CPU, where every op has finished when it returns)."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def _from_summary(s: YCHGSummary, batched: bool,
+                  event: Optional[Any] = None) -> YCHGResult:
+    return YCHGResult(s.runs, s.cut_vertices, s.transitions, s.births,
+                      s.deaths, s.n_hyperedges, s.n_transitions,
+                      batched=batched, event=event)
+
+
+def _numpy_dtype_to_torch(name: str) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
+
+
+def _default_device() -> torch.device:
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "Engine runs on the card by default and this process sees no "
+            "CUDA device; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+class Engine:
+    """The sole dispatch point for image-operator computations.
+
+    ``Engine()`` serves the ``ychg`` op on the card, resolving the best
+    backend per call; every verb accepts ``op=`` for a per-call override.
+    """
+
+    def __init__(self, config: EngineConfig = EngineConfig(), *,
+                 op: str = "ychg", device: Any = None):
+        self.config = config
+        self.op = op
+        self.device = (_default_device() if device is None
+                       else torch.device(device))
+        self.platform = self.device.type
+        self._cast_dtype = (None if config.dtype is None
+                            else _numpy_dtype_to_torch(config.dtype))
+        # op -> (registry generation, resolved spec) — revalidated against
+        # registry.generation() so late register_backend() calls still apply
+        self._spec_cache: Dict[str, tuple[int, registry.BackendSpec]] = {}
+
+    # ------------------------------------------------------------- plumbing
+
+    def resolve_backend(self, op: Optional[str] = None) -> str:
+        """Name of the backend this engine dispatches ``op`` to right now."""
+        return self._resolve(op or self.op).name
+
+    def _resolve(self, op: str) -> registry.BackendSpec:
+        gen = registry.generation()
+        cached = self._spec_cache.get(op)
+        if cached is not None and cached[0] == gen:
+            return cached[1]
+        spec = registry.resolve(self.config.backend, platform=self.platform,
+                                op=op)
+        self._spec_cache[op] = (gen, spec)
+        return spec
+
+    def _ingest(self, imgs: Any) -> Tensor:
+        # a tensor on the engine's device passes through untouched; a tensor
+        # elsewhere, and host data, are copied onto it (never run in place)
+        if isinstance(imgs, torch.Tensor):
+            x = imgs.to(self.device)
+        else:
+            a = np.ascontiguousarray(imgs)
+            if not a.flags.writeable:
+                a = a.copy()
+            x = torch.from_numpy(a).to(self.device)
+        if self._cast_dtype is not None and x.dtype != self._cast_dtype:
+            x = x.to(self._cast_dtype)
+        return x
+
+    # ------------------------------------------------------------- dispatch
+
+    def analyze(self, img: Any, *, op: Optional[str] = None):
+        """One (H, W) mask -> B=1 result (never copies device->host)."""
+        x = self._ingest(img)
+        if x.ndim != 2:
+            raise ValueError(f"analyze expects an (H, W) mask, got "
+                             f"{tuple(x.shape)}; use analyze_batch for stacks")
+        return self._run(x[None], batched=False, op=op or self.op)
+
+    def analyze_batch(self, stack: Any, *, op: Optional[str] = None):
+        """A (B, H, W) stack in one device computation."""
+        x = self._ingest(stack)
+        if x.ndim != 3:
+            raise ValueError(f"analyze_batch expects a (B, H, W) stack, "
+                             f"got {tuple(x.shape)}")
+        return self._run(x, batched=True, op=op or self.op)
+
+    def analyze_stream(self, items: Iterable[Any], *,
+                       op: Optional[str] = None) -> Iterator[Any]:
+        """Lazily map ``analyze``/``analyze_batch`` over an iterable.
+
+        Each item may be an (H, W) mask or a (B, H, W) stack; one result is
+        yielded per item, strictly in order. The stream runs one item ahead
+        of the yield point: item n+1 is pulled and ingested before result n
+        is yielded. Ingest is a synchronous host-to-device copy for now
+        (pinned memory on a copy stream is a later change).
+        """
+        run_op = op or self.op
+        it = iter(items)
+        pending = None
+        while True:
+            # pull and ingest item n+1 first ...
+            try:
+                item = next(it)
+                x = self._ingest(item)
+                if x.ndim == 2:
+                    x, batched = x[None], False
+                elif x.ndim == 3:
+                    batched = True
+                else:
+                    raise ValueError(
+                        f"stream items must be (H, W) or (B, H, W), "
+                        f"got {tuple(x.shape)}"
+                    )
+            except StopIteration:
+                break
+            except Exception:
+                # a bad item — or a source iterator that raises — must not
+                # swallow the previous item's computed result: deliver it,
+                # then raise on the consumer's next pull
+                if pending is not None:
+                    yield pending
+                    pending = None
+                raise
+            # ... only then hand result n to the consumer
+            if pending is not None:
+                yield pending
+            pending = self._run(x, batched=batched, op=run_op)
+        if pending is not None:
+            yield pending
+
+    def _run(self, imgs: Tensor, *, batched: bool, op: str):
+        opspec = engine_ops.get_op(op)
+        spec = self._resolve(op)
+        # counted BEFORE the run so a raising backend still shows up in
+        # call_count; the dispatch-cost histogram only sees successes
+        registry.note_call(spec.name, op)
+        t0 = time.monotonic()
+        summary = spec.run(imgs, self.config)
+        out = opspec.from_summary(summary, batched, record_event(imgs.device))
+        registry.note_dispatch(spec.name, time.monotonic() - t0, op)
+        return out
