@@ -28,10 +28,15 @@ from repro_torch.engine.registry import (
     resolve,
 )
 from repro_torch.engine.ops import (
+    CCLResult,
+    DenoiseResult,
     OpSpec,
     get_op,
     op_names,
+    pipeline_op_key,
     register_op,
+    split_pipeline_key,
+    validate_pipeline,
 )
 from repro_torch.engine.ops import register_builtin_ops as _builtin
 
@@ -41,6 +46,8 @@ from repro_torch.engine import backends as _backends  # noqa: E402,F401  (self-r
 
 __all__ = [
     "BackendSpec",
+    "CCLResult",
+    "DenoiseResult",
     "Engine",
     "EngineConfig",
     "OpSpec",
@@ -51,8 +58,11 @@ __all__ = [
     "get_backend",
     "get_op",
     "op_names",
+    "pipeline_op_key",
     "register_backend",
     "register_op",
     "registered_ops",
     "resolve",
+    "split_pipeline_key",
+    "validate_pipeline",
 ]

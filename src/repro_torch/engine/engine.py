@@ -1,14 +1,19 @@
 """`EngineConfig` / `YCHGResult` / `Engine` — the port's entry point.
 
 The counterpart of ``repro.engine.engine``. One engine owns one dispatch
-policy (backend selection, kernel knobs) and one torch device, and exposes
-three verbs, each taking ``op=`` to override the engine's default op:
+policy (backend selection, kernel knobs) and one torch device over every
+registered op (``ychg``, ``ccl``, ``denoise``), and exposes three verbs,
+each taking ``op=`` to override the engine's default op:
 
   * ``analyze(img)``         — one (H, W) mask, as a B=1 view of the batched
                                path;
   * ``analyze_batch(stack)`` — a (B, H, W) stack in one device computation;
   * ``analyze_stream(it)``   — an iterable of masks or stacks, one result
-                               yielded per item.
+                               yielded per item;
+
+plus ``run_pipeline(stack, stages)``: an ordered op chain run on the
+device end to end, each stage's output feeding the next with no host round
+trip, bit-identical to issuing the stages as separate calls.
 
 The engine runs on the card unless the caller asks for the CPU:
 ``Engine()`` means ``device="cuda"`` and raises when there is no CUDA
@@ -16,15 +21,14 @@ device; ``Engine(device="cpu")`` is the only way onto the CPU. The backend
 registry is asked for the engine's own device type (``"cpu"`` or
 ``"cuda"``). Results stay on the device; ``.to_host()`` copies them out.
 
-Not in this slice: the mesh path, ``lower``, ``run_pipeline`` and the
-``YCHGEngine`` shim.
+Not ported yet: the mesh path, ``lower`` and the ``YCHGEngine`` shim.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, Iterable, Iterator, Optional
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -131,6 +135,23 @@ def _from_summary(s: YCHGSummary, batched: bool,
                       batched=batched, event=event)
 
 
+def _zero_pad_region(x: Tensor, valid_hw: Tensor) -> Tensor:
+    """Zero rows >= h and cols >= w per image (valid_hw: (B, 2) int32).
+
+    Between pipeline stages this restores the exact canvas a single-op
+    submit would see: a stage may write nonzero values into the pad
+    region (denoise's RMS does, next to native pixels), and the next stage
+    must not observe them.
+    """
+    _, h, w = x.shape
+    rows = torch.arange(h, device=x.device)[None, :, None]
+    cols = torch.arange(w, device=x.device)[None, None, :]
+    keep = (rows < valid_hw[:, 0, None, None]) & (
+        cols < valid_hw[:, 1, None, None])
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
 def _numpy_dtype_to_torch(name: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
 
@@ -147,7 +168,8 @@ class Engine:
     """The sole dispatch point for image-operator computations.
 
     ``Engine()`` serves the ``ychg`` op on the card, resolving the best
-    backend per call; every verb accepts ``op=`` for a per-call override.
+    backend per call; ``Engine(op="ccl")`` pins another default op, and
+    every verb accepts ``op=`` for a per-call override.
     """
 
     def __init__(self, config: EngineConfig = EngineConfig(), *,
@@ -254,6 +276,41 @@ class Engine:
             pending = self._run(x, batched=batched, op=run_op)
         if pending is not None:
             yield pending
+
+    def run_pipeline(self, stack: Any, stages: Sequence[str], *,
+                     valid_hw: Optional[Any] = None, batched: bool = True,
+                     on_stage: Optional[Callable[[str, float, float],
+                                                 None]] = None):
+        """Run an ordered op chain on the device, no host round trips.
+
+        Each stage's ``chain_field`` output becomes the next stage's input
+        stack. ``valid_hw`` ((B, 2) int32 of per-image (h, w)) re-zeroes the
+        pad region between stages, so a bucket-padded batch stays
+        bit-identical to issuing the stages as separate (cropped) submits;
+        see :func:`_zero_pad_region`. ``on_stage(name, t0, t1)`` fires
+        after each stage's dispatch (launches are asynchronous, so the span
+        is the host's time to enqueue them); the service uses it for its
+        per-stage ``pipeline.<op>`` spans and stage histograms. Returns the
+        LAST stage's result.
+        """
+        stages = engine_ops.validate_pipeline(stages)
+        x = self._ingest(stack)
+        if x.ndim != 3:
+            raise ValueError(f"run_pipeline expects a (B, H, W) stack, got "
+                             f"{tuple(x.shape)}")
+        hw = (None if valid_hw is None else torch.as_tensor(
+            valid_hw, dtype=torch.int32, device=x.device))
+        result = None
+        for i, name in enumerate(stages):
+            t0 = time.monotonic()
+            result = self._run(x, batched=batched, op=name)
+            if i + 1 < len(stages):
+                x = getattr(result, engine_ops.get_op(name).chain_field)
+                if hw is not None:
+                    x = _zero_pad_region(x, hw)
+            if on_stage is not None:
+                on_stage(name, t0, time.monotonic())
+        return result
 
     def _run(self, imgs: Tensor, *, batched: bool, op: str):
         opspec = engine_ops.get_op(op)

@@ -7,14 +7,15 @@ from "a yCHG server" into "an image-operator platform serving yCHG first",
 so ``backend="auto"`` resolution is a pure function of (op, platform,
 batch shape, mesh attached) over the registered specs:
 
-  * ``op`` — which operator the spec implements (``"ychg"`` in this port
-    so far);
+  * ``op`` — which operator the spec implements (``"ychg"``, ``"ccl"``
+    or ``"denoise"`` in this port);
   * ``device_kinds`` — platforms the backend can execute on at all: the
     torch device types ``"cpu"`` and ``"cuda"`` (a kernel backend on
     ``"cpu"`` runs its kernels' plain versions: exact, not fast);
   * ``priority`` — per-platform preference; highest wins for ``auto``.
     This is how "the kernel on the card, plain torch on the CPU" is
-    expressed as data: ``torch`` outranks ``fused`` on cpu, ``fused``
+    expressed as data: ``torch`` outranks the kernel backend (``fused``
+    for ychg, ``cuda`` for ccl and denoise) on cpu, and the kernel backend
     outranks ``torch`` on cuda;
   * ``supports_batch`` — the callable consumes a whole (B, H, W) stack in
     one device computation (vs the engine looping images on host);

@@ -5,11 +5,14 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 8192 --batch 8                    # on the CUDA device
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --op ccl --res 8192 --batch 8           # another op
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --overload --device cpu
 
 The counterpart of ``repro.launch.serve``'s in-process ``ychg`` pass
-(``serve_ychg``), with its ``--overload`` leg. The network front end,
-fleet, scene and LM modes come in later slices.
+(``serve_ychg``), with its ``--op`` and ``--overload`` legs;
+:func:`pipeline_pass` serves masks through an op chain. The network front
+end, fleet, scene and LM modes come in later slices.
 """
 
 from __future__ import annotations
@@ -67,9 +70,10 @@ class ServeReport:
 def serve_passes(engine, masks: Sequence[np.ndarray],
                  fresh: Sequence[np.ndarray], *, op: str = "ychg",
                  timeout: float = 600.0) -> ServeReport:
-    """Three timed passes through one service: cold (first use of the
-    bucket shape: kernel build and warm-up), warm (steady-state compute on
-    fresh masks), cached (``masks`` again, served from the result cache)."""
+    """Three timed passes of op ``op`` through one service: cold (first use
+    of the bucket shape: kernel build and warm-up), warm (steady-state
+    compute on fresh masks), cached (``masks`` again, served from the
+    result cache)."""
     from repro_torch.service import ServiceConfig, YCHGService
 
     side = max(max(m.shape) for m in masks)
@@ -89,7 +93,7 @@ def serve_passes(engine, masks: Sequence[np.ndarray],
         t_cached, cached = timed_pass(svc, masks)
         m = svc.metrics()
     return ServeReport(
-        backend=m.backend,
+        backend=engine.resolve_backend(op=op),
         pixels_per_pass=sum(int(x.size) for x in fresh),
         t_cold=t_cold, t_warm=t_warm, t_cached=t_cached,
         cold=cold, warm=warm, cached=cached,
@@ -105,6 +109,41 @@ def serve_passes(engine, masks: Sequence[np.ndarray],
     )
 
 
+@dataclasses.dataclass(frozen=True)
+class PipelineReport:
+    """What one pass of masks through an op chain did."""
+
+    backend: str       # "+"-joined resolved backends of the stages
+    seconds: float
+    results: tuple     # last stage's per-request results, in submit order
+    batches: int       # device batches the pass dispatched
+    stage_s: dict      # service stage -> seconds summed over its requests
+    metrics: Any
+
+
+def pipeline_pass(engine, masks: Sequence[np.ndarray],
+                  stages: Sequence[str] = ("denoise", "ychg"), *,
+                  timeout: float = 600.0) -> PipelineReport:
+    """One timed pass of ``masks`` through ``submit_pipeline(stages)`` on a
+    service with one bucket of the masks' side and ``max_batch`` of their
+    count; the stage split includes the per-stage ``pipeline.<op>``
+    dispatch seconds."""
+    from repro_torch.service import ServiceConfig, YCHGService
+
+    side = max(max(m.shape) for m in masks)
+    cfg = ServiceConfig(bucket_sides=(side,), max_batch=len(masks))
+    with YCHGService(engine, cfg) as svc:
+        t0 = time.perf_counter()
+        outs = tuple(f.result(timeout=timeout) for f in
+                     [svc.submit_pipeline(m, stages) for m in masks])
+        seconds = time.perf_counter() - t0
+        m = svc.metrics()
+    return PipelineReport(
+        backend="+".join(engine.resolve_backend(op=s) for s in stages),
+        seconds=seconds, results=outs, batches=m.batches,
+        stage_s=_stage_seconds(m), metrics=m)
+
+
 def _stage_seconds(metrics) -> dict:
     """Seconds summed per service stage (cache_probe, queue_wait, flush,
     compute, crop, ...) from a metrics snapshot's stage histograms."""
@@ -116,23 +155,25 @@ def _stage_seconds(metrics) -> dict:
 
 
 def overload_pass(engine, burst: Sequence[np.ndarray], *, max_batch: int,
-                  timeout: float = 600.0) -> tuple[int, int]:
+                  op: str = "ychg", timeout: float = 600.0) -> tuple[int, int]:
     """Offer a burst to a bounded-queue service (``overload_policy="shed"``)
-    and return (admitted, shed); raises unless it shed. For small masks the
-    long delay window holds the two admitted requests pending, so the shed
-    count is deterministic; for large ones each submit's content hash can
-    outlast the window, and slots free up during the burst."""
+    and return (admitted, shed); raises unless it shed. The delay window, a
+    minute, outlasts the burst: unless ``max_batch`` admitted requests fill
+    a batch, the two admitted ones stay pending until the service closes
+    and drains them, so the shed count does not depend on how long each
+    submit's content hash takes (at 8192^2 it can outlast a short window
+    and free the slots mid-burst)."""
     from repro_torch.service import ServiceConfig, ServiceOverloaded, YCHGService
 
     side = max(max(m.shape) for m in burst)
     ocfg = ServiceConfig(bucket_sides=(side,), max_batch=max_batch,
-                         max_delay_ms=200.0, max_queue_depth=2,
+                         max_delay_ms=60_000.0, max_queue_depth=2,
                          overload_policy="shed")
     shed, futures = 0, []
     with YCHGService(engine, ocfg) as osvc:
         for b in burst:
             try:
-                futures.append(osvc.submit(b))
+                futures.append(osvc.submit(b, op=op))
             except ServiceOverloaded:
                 shed += 1
         om = osvc.metrics()
@@ -144,18 +185,34 @@ def overload_pass(engine, burst: Sequence[np.ndarray], *, max_batch: int,
     return len(futures), shed
 
 
+# one human-readable number per op for the per-tile report
+_OP_STAT_NAME = {"ychg": "hyperedges", "ccl": "components",
+                 "denoise": "mean"}
+
+
+def _op_stat(op: str, out) -> Any:
+    if op == "ychg":
+        return int(out.n_hyperedges[0])
+    if op == "ccl":
+        return int(out.n_components.reshape(-1)[0])
+    return round(float(out.image.mean()), 4)
+
+
 def serve_ychg(args) -> ServeReport:
     """The paper's image-analysis workload behind the service, on the
     engine's device: a cold, a warm and a cached pass of ``--batch`` masks
-    at ``--res``, and with ``--overload`` a burst against a bounded queue."""
+    at ``--res`` through op ``--op``, and with ``--overload`` a burst
+    against a bounded queue."""
     from repro_torch.engine import Engine
 
+    op = args.op
     engine = Engine(device=args.device)
     masks = derived_masks(args.res, 2 * args.batch)
-    report = serve_passes(engine, masks[:args.batch], masks[args.batch:])
+    report = serve_passes(engine, masks[:args.batch], masks[args.batch:],
+                          op=op)
     m = report.metrics
-    edges = [int(o.n_hyperedges[0]) for o in report.cold]
-    print(f"ychg service[{report.backend}] on {engine.device}: "
+    stats = [_op_stat(op, o) for o in report.cold]
+    print(f"{op} service[{report.backend}] on {engine.device}: "
           f"{args.batch} x {args.res}^2 masks")
     print(f"  cold  {report.t_cold * 1e3:8.1f}ms (includes kernel build)")
     print(f"  warm  {report.t_warm * 1e3:8.1f}ms "
@@ -164,14 +221,15 @@ def serve_ychg(args) -> ServeReport:
           f"(hit rate {report.cached_hit_rate:.0%})")
     print(f"  p50 {m.p50_latency_ms:.1f}ms p95 {m.p95_latency_ms:.1f}ms over "
           f"{m.completed} requests ({m.completed_from_cache} from cache) "
-          f"in {m.batches} device batches {report.batches}; hyperedges per "
-          f"tile: {edges}")
+          f"in {m.batches} device batches {report.batches}; "
+          f"{_OP_STAT_NAME[op]} per tile: {stats}")
     print("  warm pass by stage (s): " + ", ".join(
         f"{k} {v:.4f}" for k, v in sorted(report.warm_stage_s.items())))
     if args.overload:
         n_burst = 4 * args.batch
         burst = derived_masks(args.res, n_burst, seed=10_000)
-        admitted, shed = overload_pass(engine, burst, max_batch=args.batch)
+        admitted, shed = overload_pass(engine, burst, max_batch=args.batch,
+                                       op=op)
         print(f"  overload burst of {n_burst} at max_queue_depth=2: "
               f"{admitted} admitted, {shed} shed "
               f"(shed rate {shed / n_burst:.0%})")
@@ -181,6 +239,8 @@ def serve_ychg(args) -> ServeReport:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="ychg", choices=["ychg"])
+    ap.add_argument("--op", default="ychg", choices=["ychg", "ccl", "denoise"],
+                    help="the operator the service runs on every mask")
     ap.add_argument("--res", type=int, default=1024)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--overload", action="store_true",

@@ -9,7 +9,9 @@ power-of-two sub-batch ladder, behind a content-addressed LRU result cache
 ``max_queue_depth`` + ``overload_policy`` add admission control: past the
 bound, ``submit`` blocks (backpressure) or raises
 :class:`ServiceOverloaded` (shed). The scheduler, metrics and cache are
-copies of the JAX package's; op ``ychg`` is the one served so far.
+copies of the JAX package's. Every registered op is served
+(``submit(mask, op="ccl")``), and ordered op chains run on the device end
+to end (``submit_pipeline(mask, ["denoise", "ychg"])``).
 
     from repro_torch.service import ServiceConfig, YCHGService
 
@@ -21,7 +23,7 @@ copies of the JAX package's; op ``ychg`` is the one served so far.
 
 Results are bit-identical to ``engine.analyze(mask)`` for every request,
 through padding, bucketing, arrival order, duplicates and caching
-(``tests/test_torch_service.py``).
+(``tests/test_torch_service.py``, ``tests/test_torch_ops.py``).
 """
 
 from repro_torch.service.batching import (

@@ -15,6 +15,15 @@ original column untouched (the first pad column may register a death, but
 it is cropped away). Cropping the per-column arrays back to the request's
 width and recomputing the two int32 reductions over the cropped columns
 therefore reproduces ``engine.analyze(mask)`` exactly, dtypes included.
+
+``ccl`` and ``denoise`` return full (H, W) canvases, so their crops slice
+both axes. Both are pad-invariant by construction (``kernels.ccl`` and
+``kernels.denoise`` give the argument), so the slice IS the single-image
+answer; for ccl that includes ``n_components``, because zero padding never
+starts a component and the canonical re-ranking follows the native
+row-major order. Those crops copy the request's region out of the batch:
+a view would keep the whole (B, side, side) batch alive in the result
+cache.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 
 from repro_torch.core.ychg import YCHGSummary
 from repro_torch.engine.engine import YCHGResult, _from_summary, record_event
-from repro_torch.engine.ops import PIPELINE_SEP
+from repro_torch.engine.ops import CCLResult, DenoiseResult, split_pipeline_key
 
 # A bucket is (op key, side, dtype name): masks only stack with their own
 # dtype AND their own operator.
@@ -84,9 +93,29 @@ def _crop_ychg_op(batched: YCHGResult, row: int,
     return crop_result(batched, row, shape[1])
 
 
-# the ccl and denoise crops come with those ops
+def _copy_region(t: torch.Tensor, row: int, shape: Tuple[int, int]):
+    """Image ``row``'s native (h, w) region as a (1, h, w) contiguous copy."""
+    h, w = shape
+    return t[row:row + 1, :h, :w].clone(memory_format=torch.contiguous_format)
+
+
+def _crop_ccl_op(batched: CCLResult, row: int,
+                 shape: Tuple[int, int]) -> CCLResult:
+    lab = _copy_region(batched.labels, row, shape)
+    n = batched.n_components[row:row + 1].clone()
+    return CCLResult(lab, n, batched=False, event=record_event(lab.device))
+
+
+def _crop_denoise_op(batched: DenoiseResult, row: int,
+                     shape: Tuple[int, int]) -> DenoiseResult:
+    img = _copy_region(batched.image, row, shape)
+    return DenoiseResult(img, batched=False, event=record_event(img.device))
+
+
 _CROPS = {
     "ychg": _crop_ychg_op,
+    "ccl": _crop_ccl_op,
+    "denoise": _crop_denoise_op,
 }
 
 
@@ -96,4 +125,4 @@ def crop_for(op_key: str):
     Returns ``(batched_result, row, (h, w)) -> B=1 unbatched result``.
     Raises ``KeyError`` for an op without a registered crop.
     """
-    return _CROPS[op_key.split(PIPELINE_SEP)[-1]]
+    return _CROPS[split_pipeline_key(op_key)[-1]]

@@ -1,6 +1,8 @@
 """`YCHGService` — the batching, caching service over the port's `Engine`.
 
-The port's counterpart of ``repro.service.service``, serving op ``ychg``.
+The port's counterpart of ``repro.service.service``, serving every
+registered op (``ychg``, ``ccl``, ``denoise``) and ordered op chains
+(``submit_pipeline``).
 
 Between "a request arrives" and "the engine runs" sit three layers, each
 independently testable:
@@ -48,8 +50,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.engine import Engine, UnknownOpError, YCHGResult
-from repro_torch.engine.ops import PIPELINE_SEP
+from repro_torch.engine import Engine, YCHGResult
+from repro_torch.engine.ops import (
+    PIPELINE_SEP,
+    pipeline_op_key,
+    split_pipeline_key,
+    validate_pipeline,
+)
 from repro_torch.obs import NULL_TRACE, maybe_trace
 from repro_torch.service.batching import (
     Bucket,
@@ -239,8 +246,9 @@ class YCHGService:
     ``submit(mask)`` returns a ``concurrent.futures.Future`` resolving to
     the B=1 device-resident ``YCHGResult`` that ``engine.analyze(mask)``
     would produce — bit-identical, including through bucket padding and
-    result caching. ``analyze(mask)`` is the blocking convenience form.
-    ``submit_pipeline`` raises until the ops a pipeline chains are ported.
+    result caching. ``analyze(mask)`` is the blocking convenience form;
+    ``submit(mask, op="ccl")`` serves another op, and
+    ``submit_pipeline(mask, ["denoise", "ychg"])`` an op chain.
     Use as a context manager, or call ``close()`` to drain and stop.
     ``YCHGService()`` builds the default engine, which runs on the card.
 
@@ -317,12 +325,24 @@ class YCHGService:
                         klass: Optional[str] = None,
                         deadline_ms: Optional[float] = None,
                         tenant: Optional[str] = None) -> "Future":
-        """Ordered op chains need the ``denoise`` and ``ccl`` ops, which
-        the port does not have yet: raises :class:`UnknownOpError`, as a
-        chain naming an unregistered op does."""
-        raise UnknownOpError(
-            f"pipeline {PIPELINE_SEP.join(stages)!r}: op chains are not "
-            f"ported yet (only single ops are served)")
+        """Enqueue one mask through an ordered op chain, on the device.
+
+        ``stages`` is a sequence of op names, e.g. ``["denoise", "ychg"]``;
+        every stage but the last must be chainable (its result has an
+        image-shaped field the next stage ingests). The future resolves to
+        the LAST stage's B=1 result, bit-identical to submitting each
+        stage separately and feeding the cropped output forward: the
+        pipeline just never leaves the device between stages. Cache
+        entries are keyed by the full ``"+"``-joined pipeline key, so a
+        pipeline never aliases its prefix ops.
+        """
+        stages = validate_pipeline(stages)
+        op_key = pipeline_op_key(stages)
+        backend = PIPELINE_SEP.join(
+            self.engine.resolve_backend(op=s) for s in stages)
+        return self._submit_keyed(mask, op_key, backend, trace,
+                                  klass=klass, deadline_ms=deadline_ms,
+                                  tenant=tenant)
 
     def _submit_keyed(self, mask: Any, op_key: str, backend: str,
                       trace: Optional[Any], *,
@@ -428,8 +448,7 @@ class YCHGService:
 
     def pipeline(self, mask: Any, stages,
                  timeout: Optional[float] = None):
-        """Blocking convenience: ``submit_pipeline(...).result(timeout)``;
-        raises until op chains are ported."""
+        """Blocking convenience: ``submit_pipeline(...).result(timeout)``."""
         return self.submit_pipeline(mask, stages).result(timeout)
 
     def metrics(self) -> ServiceMetrics:
@@ -492,7 +511,27 @@ class YCHGService:
         # host-to-device copy onto the engine's device (synchronous for
         # now); the previous bucket's computation may still be in flight
         x = torch.from_numpy(stack).to(self.engine.device)
-        if op_key == self.engine.op:
+        if PIPELINE_SEP in op_key:
+            # per-request native (h, w) so each stage's output is re-zeroed
+            # outside the request's canvas: exactly what a fresh pad of the
+            # cropped intermediate would look like, which is what makes
+            # pipeline == sequential bit-exact. Blank pad rows get (0, 0).
+            hw = np.zeros((batch_size, 2), np.int32)
+            for i, r in enumerate(requests):
+                hw[i] = r.mask.shape
+
+            def _stage_span(name: str, s0: float, s1: float) -> None:
+                # one ``pipeline.<op>`` span per stage on every rider's
+                # trace, plus a stage histogram keyed by the compound bucket
+                self._recorder.observe_stage(f"pipeline.{name}", bucket,
+                                             max(0.0, s1 - s0))
+                for r in requests:
+                    r.trace.add(f"pipeline.{name}", s0, s1)
+
+            result = self.engine.run_pipeline(
+                x, split_pipeline_key(op_key), valid_hw=hw,
+                on_stage=_stage_span)
+        elif op_key == self.engine.op:
             result = self.engine.analyze_batch(x)  # async launch
         else:
             result = self.engine.analyze_batch(x, op=op_key)

@@ -149,12 +149,15 @@ def test_default_engine_needs_cuda(monkeypatch):
 
 
 def test_unported_ops_are_unknown():
+    """Every op of the JAX package is ported (``ccl`` and ``denoise``
+    resolve); an op neither package has raises the typed error."""
     eng = Engine(device="cpu")
     for op in ("ccl", "denoise"):
-        with pytest.raises(UnknownOpError):
-            eng.analyze(_masks((4, 4), 8), op=op)
+        assert eng.analyze(_masks((4, 4), 8), op=op).batch_size == 1
     with pytest.raises(UnknownOpError):
-        Engine(device="cpu", op="ccl").resolve_backend()
+        eng.analyze(_masks((4, 4), 8), op="warp")
+    with pytest.raises(UnknownOpError):
+        Engine(device="cpu", op="warp").resolve_backend()
 
 
 def test_result_block_until_ready_and_summary():

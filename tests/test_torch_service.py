@@ -103,12 +103,14 @@ def test_cache_keys_differ_from_jax_keys():
 
 
 def test_unported_ops_and_pipelines_raise():
+    """Ops and chains naming an op no package has raise the typed error;
+    a pipeline key passed to ``submit`` points at ``submit_pipeline``."""
     with YCHGService(Engine(device="cpu"),
                      ServiceConfig(bucket_sides=(64,))) as svc:
         with pytest.raises(UnknownOpError):
-            svc.submit(RAGGED[0], op="ccl")
+            svc.submit(RAGGED[0], op="warp")
         with pytest.raises(UnknownOpError):
-            svc.submit_pipeline(RAGGED[0], ["denoise", "ychg"])
+            svc.submit_pipeline(RAGGED[0], ["denoise", "warp"])
         with pytest.raises(ValueError, match="pipeline"):
             svc.submit(RAGGED[0], op="denoise+ychg")
 
@@ -133,7 +135,8 @@ def test_modis_copy_matches_jax():
 def test_serve_cli_on_cpu(capsys):
     """The serve command's in-process pass, with the overload leg."""
     report = serve.serve_ychg(argparse.Namespace(
-        res=32, batch=2, overload=True, device="cpu", workload="ychg"))
+        res=32, batch=2, overload=True, device="cpu", workload="ychg",
+        op="ychg"))
     out = capsys.readouterr().out
     assert "ychg service[torch] on cpu" in out and "shed" in out
     assert report.cached_batches == 0 and report.cached_hit_rate == 1.0
