@@ -8,35 +8,48 @@ toolkit (nvcc), and imports nothing of JAX or of the JAX package. Phases,
 each of which fails the run (non-zero exit, no result line) when it fails:
 
   1. the card: name and power limit as nvidia-smi reports them;
-  2. the build: every CUDA source of the path (ychg_fused, denoise, ccl),
-     one nvcc each, in parallel;
+  2. the build: every CUDA source of the path (ychg_fused, ychg_colscan,
+     denoise, ccl), one nvcc each, in parallel;
   3. every kernel against its plain PyTorch version on the card, exactly
      (every field, dtype included), except denoise on float inputs, which
      is held to 1 ulp in at most 1 in 10^4 outputs (the differing count is
      printed): ragged widths, H = 1, W = 1, constant, checkerboard and
      serpentine masks, B = 1 and 8, uint8/bool/int32/float32 and the cast
-     path, -0.0, NaN and inf, split-H with H not a multiple of block_h, the
-     serving batches and the paper's largest scene (21000^2, 4,124,319
-     hyperedges) through both yCHG kernels; then each kernel is timed at
-     its main shapes, the lone 1 x 8192^2 mask the service flushes among
-     them (CUDA events, median of 15 samples of 5 back-to-back calls,
-     after a warm-up), beside its plain version, its bound and, for ccl,
-     the canonical re-ranking alone;
+     path, -0.0, NaN and inf, float32 subnormals of both signs (bit for
+     bit for all seven kernels, denoise included), split-H with H not a
+     multiple of block_h, the serving batches (the two-kernel path one
+     mask at a time) and the paper's largest scene (21000^2, 4,124,319
+     hyperedges) through the fused and the two step-1 kernels; then each
+     kernel is timed at its main shapes, the lone 1 x 8192^2 mask the
+     service flushes among them (CUDA events, median of 15 samples of 5
+     back-to-back calls, after a warm-up), beside its plain version, its
+     bound and, for ccl, the canonical re-ranking alone;
   4. the main path, with every launch counter set to 0 just before it:
      ``Engine().analyze_batch`` on 8 x 8192^2 uint8 masks for ychg (must
      resolve to ``fused``), ccl and denoise (must resolve to ``cuda``),
-     and denoise on float32 copies with 1% impulse pixels, each equal to
-     ``backend="torch"``; ``Engine().run_pipeline(["denoise", "ychg"])``
-     equal to the two stages run one after the other; the service's cold,
-     warm and cached passes of 8 masks each for ychg, ccl and denoise, and
-     one pass of 8 float32 masks through ``submit_pipeline`` (every served
-     result equal to the plain reference on its raw mask; the cached pass
-     dispatches nothing; the device batches and stage seconds of each are
-     printed); the overload burst; and the 21000^2 scene through
-     ``Engine().analyze`` (full-column kernel), through an engine with
-     ``stream_vmem_budget=0`` (the split-H kernel) and as op ``ccl``
-     (4,124,319 components). Every kernel must have launched in this
-     phase.
+     ``Engine(EngineConfig(backend="cuda"))`` for ychg (the paper's two
+     kernels, two launches a mask), and denoise on float32 copies with 1%
+     impulse pixels, each equal to ``backend="torch"``;
+     ``Engine().run_pipeline(["denoise", "ychg"])`` equal to the two
+     stages run one after the other; the service's cold, warm and cached
+     passes of 8 masks each for ychg (``fused`` and ``cuda``), ccl and
+     denoise, and one pass of 8 float32 masks through ``submit_pipeline``
+     (every served result equal to the plain reference on its raw mask;
+     the cached pass dispatches nothing; the device batches and stage
+     seconds of each are printed); the overload burst; the 21000^2 scene
+     through the full-column and split-H routes of both ychg kernel
+     backends and as op ``ccl`` (4,124,319 components); then the HTTP
+     front end over loopback on the ``cuda`` engine: 8 x 2048^2 masks
+     through ``/v1/analyze_batch``, one 4096^2 mask through ``/v1/ychg``,
+     ``/v1/ccl``, ``/v1/denoise`` and ``/v1/pipeline`` at 2048^2 (the
+     largest masks its 64 MiB body limit carries), every response equal
+     to the plain reference, ``/metrics`` parsed, and a 429 with
+     Retry-After at a full queue. Every kernel must have launched in this
+     phase;
+  5. the paper's comparison, for information: its serial NumPy baseline
+     on the host against the ``cuda`` and ``fused`` backends on the card,
+     at each resolution of the workload up to 12000^2 and the 21000^2
+     scene, all three equal.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -61,6 +74,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_PIXEL = 3          # ychg: compare, and-not, add
+DIFF_OPS_PER_COLUMN = 5    # ychg_diff: subtract, compare, two max, negate
 # denoise: 8 + 7 adds, 8 squares, 1 FMA (2), 2 multiplies by 1/9, sqrt,
 # subtract, abs, multiply by TAU, compare
 DENOISE_FLOPS_PER_PIXEL = 32
@@ -81,20 +95,37 @@ KERNELS = {
                         "src/repro/kernels/ychg_fused.py:91"),
     "ychg_fused_splith": (CSRC + "ychg_fused.cu",
                           "src/repro/kernels/ychg_fused.py:168"),
+    "ychg_colscan_full": (CSRC + "ychg_colscan.cu",
+                          "src/repro/kernels/ychg_colscan.py:42"),
+    "ychg_colscan_splith": (CSRC + "ychg_colscan.cu",
+                            "src/repro/kernels/ychg_colscan.py:51"),
+    "ychg_diff": (CSRC + "ychg_colscan.cu",
+                  "src/repro/kernels/ychg_colscan.py:68"),
     "denoise": (CSRC + "denoise.cu", "src/repro/kernels/denoise.py:77"),
     "ccl": (CSRC + "ccl.cu", "src/repro/kernels/ccl.py:127"),
 }
 YCHG_NOTE = ("no single PyTorch call computes per-column run counts with "
              "their neighbour diff and per-image totals")
+COLSCAN_NOTE = "no single PyTorch call counts maximal runs per column"
 LIBRARY_NOTES = {
     "ychg_fused_full": YCHG_NOTE,
     "ychg_fused_splith": YCHG_NOTE,
+    "ychg_colscan_full": COLSCAN_NOTE,
+    "ychg_colscan_splith": COLSCAN_NOTE,
+    "ychg_diff": ("torch.diff gives the delta alone; no single PyTorch call "
+                  "gives transitions, births and deaths"),
     "denoise": ("no single PyTorch call computes the filter: a 3x3 "
                 "convolution gives the two window sums, not the outlier "
                 "test and the select"),
     "ccl": "no PyTorch call computes connected-component labels",
 }
 IMPULSE_SHARE = 0.01       # impulse pixels in the float32 denoise inputs
+# float32 values around the reference's subnormal flush: +-0, subnormals of
+# both signs, NaN, +-inf and normal values far from the smallest normal
+SUBNORMAL_VALUES = (0.0, -0.0, 1e-39, -1e-39, 5e-41, -5e-41, 1.5, -2.0,
+                    float("nan"), float("inf"), float("-inf"), 0.25)
+FRONTEND_RES, FRONTEND_BIG_RES = 2048, 4096
+PAPER_MAX_RES = 12000      # the paper's comparison: resolutions up to this
 
 
 class SmokeFailure(RuntimeError):
@@ -112,6 +143,27 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptx_float_ops(source: str) -> dict:
+    """Counts of the float32 arithmetic instructions in the PTX that nvcc
+    makes of ``csrc/<source>.cu`` with the library's flags, by form (for
+    example ``add.rn.ftz.f32``)."""
+    import collections
+    import re
+
+    from repro_torch.kernels import _build
+
+    out = _build.BUILD_DIR / f"{source}.ptx"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS if f in ("-std=c++17", "-O3",
+                                                   "-ftz=true")]
+    subprocess.run([_build.nvcc(), "-gencode", "arch=compute_90a,"
+                    "code=compute_90a", *flags, "-ptx", "-o", str(out),
+                    str(_build.CSRC / f"{source}.cu")], check=True,
+                   capture_output=True, timeout=300)
+    return dict(collections.Counter(re.findall(
+        r"\b((?:add|sub|mul|fma|sqrt)\.[a-z.]*f32)", out.read_text())))
 
 
 def max_abs_err(got: dict, want: dict, label: str) -> int:
@@ -170,6 +222,21 @@ def bound(x) -> tuple[float, str, int]:
     return _bound(nbytes, OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
 
 
+def bound_colscan(x) -> tuple[float, str, int]:
+    """The same for step 1 on one (H, W) mask: the mask read once, 4 B a
+    column of int32 runs written."""
+    nbytes = x.numel() * x.element_size() + x.shape[-1] * 4
+    return _bound(nbytes, OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
+
+
+def bound_diff(runs) -> tuple[float, str, int]:
+    """The same for step 2: (W,) int32 runs read once, a bool and two
+    int32 a column written."""
+    w = runs.shape[0]
+    return _bound(w * 4 + w * (1 + 4 + 4),
+                  DIFF_OPS_PER_COLUMN * w / PEAK_INT32_OPS_PER_S)
+
+
 def bound_denoise(x) -> tuple[float, str, int]:
     """The same for denoise: input read once, 4 B/px of float32 written,
     against its float32 work per pixel."""
@@ -210,6 +277,27 @@ def float_err(got, want, label: str) -> tuple[float, int]:
     check(n <= got.numel() // 10_000, f"{label}: {n} of {got.numel()} "
                                       f"outputs differ")
     return float(err.max()), n
+
+
+def float_exact(got, want, label: str) -> int:
+    """float32 outputs bit for bit (NaN equal to NaN); returns 0."""
+    import torch
+
+    check(got.dtype == want.dtype == torch.float32,
+          f"{label}: dtype {got.dtype} != {want.dtype}")
+    check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} != "
+                                   f"{tuple(want.shape)}")
+    same = (got.view(torch.int32) == want.view(torch.int32)) | (
+        torch.isnan(got) & torch.isnan(want))
+    n = int((~same).sum())
+    check(n == 0, f"{label}: {n} outputs differ from the plain version")
+    return 0
+
+
+def subnormal_values(np, rng, shape):
+    """float32 array of ``shape`` drawn from SUBNORMAL_VALUES."""
+    vals = np.array(SUBNORMAL_VALUES, np.float32)
+    return vals[rng.integers(0, len(vals), shape)]
 
 
 def impulse_copies(np, masks, seed: int = 20130611):
@@ -281,6 +369,20 @@ def image_cases(np, torch):
     return cases
 
 
+def subnormal_image_cases(np, torch):
+    """(label, cuda float32 stack) with subnormal pixels for denoise and
+    ccl, held bit for bit: mixed values, and windows of subnormals and
+    zeros only, where the flush alone decides each output."""
+    rng = np.random.default_rng(20130613)
+    tiny = np.where(rng.random((2, 40, 300)) < 0.5, np.float32(1e-39),
+                    np.float32(-5e-41))
+    tiny[:, ::7] = 0.0
+    return [("float32 with subnormals",
+             torch.from_numpy(subnormal_values(np, rng, (2, 33, 260))).to(DEV)),
+            ("float32 subnormals and zeros only",
+             torch.from_numpy(tiny).to(DEV))]
+
+
 def kernel_cases(np, torch, modis):
     """(label, cuda stack, split-H block_h) for the exactness phase."""
     rng = np.random.default_rng(20130610)
@@ -314,6 +416,8 @@ def kernel_cases(np, torch, modis):
     cases.append(("int16 (cast path)", torch.from_numpy(levels).to(dev), 8))
     cases.append(("float16 (cast path)",
                   torch.from_numpy(levels.astype(np.float16)).to(dev), 8))
+    cases.append(("float32 with subnormals", torch.from_numpy(
+        subnormal_values(np, rng, (2, 33, 260))).to(dev), 8))
     for block_h in (7, 64):
         cases.append((f"split-H ragged H, block_h={block_h}",
                       torch.from_numpy(rand((3, 1000, 513), 0.6)).to(dev),
@@ -330,19 +434,25 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from repro_torch.configs.ychg_modis import config as workload_config
     from repro_torch.core import ychg
     from repro_torch.data import modis
     from repro_torch.engine import Engine, EngineConfig, registry
+    from repro_torch.frontend import ServerThread, YCHGClient
     from repro_torch.kernels import _build
     from repro_torch.kernels import ccl as kccl
     from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import ychg_colscan as kc
     from repro_torch.kernels import ychg_fused as kf
     from repro_torch.launch.serve import (
+        check_metrics_page,
         derived_masks,
+        overload_over_wire,
         overload_pass,
         pipeline_pass,
         serve_passes,
     )
+    from repro_torch.service import ServiceConfig, YCHGService
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -359,7 +469,7 @@ def main() -> int:
 
     # 2. the build
     t0 = time.perf_counter()
-    sources = ["ychg_fused", "denoise", "ccl"]
+    sources = ["ychg_fused", "ychg_colscan", "denoise", "ccl"]
     seconds = _build.build(sources)
     print(f"build: {json.dumps(seconds)} in "
           f"{time.perf_counter() - t0:.1f} s wall", flush=True)
@@ -369,6 +479,12 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  ptxas [{source}]: {line.strip()}")
+    # denoise's float32 arithmetic must flush subnormals as the
+    # reference's XLA does: every form in its PTX is a .ftz one
+    ops = ptx_float_ops("denoise")
+    check(ops and all(".ftz." in op for op in ops),
+          f"denoise PTX has float32 arithmetic without .ftz: {ops}")
+    print(f"ptx [denoise]: float32 arithmetic {json.dumps(ops)}", flush=True)
 
     # host data: two snowfield draws, the rest rolled copies; float32
     # copies of the first batch with impulse pixels; the scene
@@ -416,17 +532,45 @@ def main() -> int:
                                  f"ccl [{label}]"))
         return sweeps
 
+    def compare_colscan(label, img, block_h):
+        """The three two-kernel-path kernels on one (H, W) mask; returns
+        the full-column runs and their diff."""
+        runs = kc.launch_full(img)
+        tally("ychg_colscan_full", max_abs_err(
+            {"runs": runs}, {"runs": kc.colscan_full_plain(img)},
+            f"ychg_colscan_full [{label}]"))
+        tally("ychg_colscan_splith", max_abs_err(
+            {"runs": kc.launch_splith(img, block_h=block_h)},
+            {"runs": kc.colscan_splith_plain(img, block_h)},
+            f"ychg_colscan_splith [{label}, block_h={block_h}]"))
+        diff = kc.launch_diff(runs)
+        tally("ychg_diff", max_abs_err(diff, kc.diff_plain(runs),
+                                       f"ychg_diff [{label}]"))
+        return runs, diff
+
     for label, x, block_h in kernel_cases(np, torch, modis):
         compare_full(label, x)
         compare_splith(label, x, block_h)
+        for i in range(x.shape[0]):
+            compare_colscan(f"{label} [{i}]", x[i], block_h)
+    runs = torch.from_numpy(np.random.default_rng(20130614).integers(
+        0, 1000, 5000).astype(np.int32)).to(DEV)
+    tally("ychg_diff", max_abs_err(kc.launch_diff(runs), kc.diff_plain(runs),
+                                   "ychg_diff [random runs]"))
     for label, x, float_input in image_cases(np, torch):
         compare_denoise(label, x, float_input)
+        compare_ccl(label, x)
+    for label, x in subnormal_image_cases(np, torch):
+        tally("denoise", float_exact(kdn.launch(x), kdn.denoise_plain(x),
+                                     f"denoise [{label}]"))
         compare_ccl(label, x)
     serve_stack = torch.from_numpy(np.stack(serve_masks[:SERVE_BATCH])).to(DEV)
     float_stack = torch.from_numpy(np.stack(float_masks)).to(DEV)
     scene_stack = torch.from_numpy(scene).to(DEV)[None]
     compare_full("serving batch", serve_stack)
     compare_splith("serving batch", serve_stack, SCENE_BLOCK_H)
+    for i in range(SERVE_BATCH):
+        compare_colscan(f"serving batch [{i}]", serve_stack[i], SCENE_BLOCK_H)
     compare_denoise("serving batch", serve_stack, False)
     compare_denoise("serving batch, float32 with impulses", float_stack, True)
     sweeps = compare_ccl("serving batch", serve_stack)
@@ -442,6 +586,17 @@ def main() -> int:
               f"{name}: scene gives {got} hyperedges, want {SCENE_HYPEREDGES}")
     compare_full("21000^2 scene", scene_stack)
     compare_splith("21000^2 scene", scene_stack, SCENE_BLOCK_H)
+    _, diff = compare_colscan("21000^2 scene", scene_stack[0], SCENE_BLOCK_H)
+    for name, runs in [
+            ("ychg_colscan_full", kc.launch_full(scene_stack[0])),
+            ("ychg_colscan_splith",
+             kc.launch_splith(scene_stack[0], block_h=SCENE_BLOCK_H))]:
+        got = int(torch.sum(kc.launch_diff(runs)["births"],
+                            dtype=torch.int32))
+        check(got == SCENE_HYPEREDGES,
+              f"{name} + ychg_diff: scene gives {got} hyperedges, want "
+              f"{SCENE_HYPEREDGES}")
+    del diff, runs
     sweeps = compare_ccl("21000^2 scene", scene_stack)
     free()
     for name, st in stats.items():
@@ -453,6 +608,8 @@ def main() -> int:
           f"{stats['denoise']['max_abs_err']}", flush=True)
 
     timings = {}
+    lone, scene_img = serve_stack[0], scene_stack[0]
+    lone_runs = kc.launch_full(lone)
     for name, x, run, plain, bound_fn, plain_samples in [
             ("ychg_fused_full", serve_stack,
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
@@ -470,6 +627,21 @@ def main() -> int:
              lambda x: kf.launch_splith(x, block_h=SCENE_BLOCK_H),
              lambda x: kf.ychg_fused_splith_plain(x, SCENE_BLOCK_H), bound,
              10),
+            # the two-kernel path runs one image a launch
+            ("ychg_colscan_full", lone, kc.launch_full,
+             kc.colscan_full_plain, bound_colscan, 10),
+            ("ychg_colscan_full", scene_img, kc.launch_full,
+             kc.colscan_full_plain, bound_colscan, 10),
+            ("ychg_colscan_splith", scene_img,
+             lambda x: kc.launch_splith(x, block_h=SCENE_BLOCK_H),
+             lambda x: kc.colscan_splith_plain(x, SCENE_BLOCK_H),
+             bound_colscan, 10),
+            ("ychg_colscan_splith", lone,
+             lambda x: kc.launch_splith(x, block_h=SCENE_BLOCK_H),
+             lambda x: kc.colscan_splith_plain(x, SCENE_BLOCK_H),
+             bound_colscan, 10),
+            ("ychg_diff", lone_runs, kc.launch_diff, kc.diff_plain,
+             bound_diff, 10),
             ("denoise", serve_stack, kdn.launch, kdn.denoise_plain,
              bound_denoise, 5),
             ("denoise", float_stack, kdn.launch, kdn.denoise_plain,
@@ -499,6 +671,16 @@ def main() -> int:
             del fg, raw
             extra = (f"; canonicalize {row['canonicalize_ms']:.4f} ms, "
                      f"whole op {row['op_ms']:.4f} ms")
+        if name == "ychg_diff":
+            # the C entry point alone on preallocated outputs: the wrapper's
+            # checks and three allocations taken away
+            lib = _build.load("ychg_colscan", kc._SIGNATURES)
+            ptrs = [v.data_ptr() for v in kc.launch_diff(x).values()]
+            stream = torch.cuda.current_stream().cuda_stream
+            row["entry_point_ms"] = time_ms(
+                lambda: lib.ychg_diff(x.data_ptr(), x.shape[0], *ptrs,
+                                      stream), reps=50)
+            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
         timings.setdefault(name, []).append(row)
         print(f"time: {name} {row['shape']} {row['dtype']}: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
@@ -506,15 +688,16 @@ def main() -> int:
               f"{100 * row['bound_share']:.1f}% of bound{extra}) on {card}",
               flush=True)
         free()
-    del serve_stack, float_stack, scene_stack
+    del serve_stack, float_stack, scene_stack, lone, scene_img, lone_runs
     free()
 
     # 4. the main path, counted from zero
-    for module in (kf, kdn, kccl):
+    for module in (kf, kc, kdn, kccl):
         module.reset_launch_counts()
     registry.reset_call_counts()
     engine = Engine()
     torch_engine = Engine(EngineConfig(backend="torch"))
+    cuda_engine = Engine(EngineConfig(backend="cuda"))
     for op, want_backend in [("ychg", "fused"), ("ccl", "cuda"),
                              ("denoise", "cuda")]:
         got = engine.resolve_backend(op=op)
@@ -531,6 +714,15 @@ def main() -> int:
     max_abs_err({f: getattr(got, f) for f in fields},
                 {f: getattr(want, f) for f in fields},
                 "Engine fused vs torch, 8 x 8192^2")
+    # the two-kernel backend: one step-1 and one step-2 launch a mask
+    got = cuda_engine.analyze_batch(stack).block_until_ready()
+    check(kc.LAUNCHES["ychg_colscan_full"] == SERVE_BATCH
+          and kc.LAUNCHES["ychg_diff"] == SERVE_BATCH,
+          f"Engine(backend='cuda').analyze_batch launched "
+          f"{json.dumps(kc.LAUNCHES)}, want {SERVE_BATCH} of step 1 and 2")
+    max_abs_err({f: getattr(got, f) for f in fields},
+                {f: getattr(want, f) for f in fields},
+                "Engine cuda vs torch, 8 x 8192^2")
     del got, want
     for op, label, data in [("ccl", "uint8 masks", stack),
                             ("denoise", "uint8 masks", stack),
@@ -549,9 +741,9 @@ def main() -> int:
         del got, want
         free()
     print(f"main path: Engine() -> fused (ychg), cuda (ccl, denoise); "
-          f"{SERVE_BATCH} x {SERVE_RES}^2 equal to backend='torch' for ychg, "
-          f"ccl and denoise (uint8 masks and float32 with impulses)",
-          flush=True)
+          f"{SERVE_BATCH} x {SERVE_RES}^2 equal to backend='torch' for ychg "
+          f"(fused and the two-kernel cuda backend), ccl and denoise (uint8 "
+          f"masks and float32 with impulses)", flush=True)
     piped = engine.run_pipeline(float_np, ["denoise", "ychg"])
     seq = engine.analyze_batch(
         engine.analyze_batch(float_np, op="denoise").image, op="ychg")
@@ -582,34 +774,39 @@ def main() -> int:
             return {"labels": res.labels, "n_components": res.n_components}
         return {"image": res.image.view(torch.int32)}
 
-    serve_backend = {"ychg": "fused", "ccl": "cuda", "denoise": "cuda"}
-    for op in ("ychg", "ccl", "denoise"):
-        report = serve_passes(Engine(), serve_masks[:SERVE_BATCH],
+    for op, config, want_backend in [
+            ("ychg", EngineConfig(), "fused"),
+            ("ychg", EngineConfig(backend="cuda"), "cuda"),
+            ("ccl", EngineConfig(), "cuda"),
+            ("denoise", EngineConfig(), "cuda")]:
+        report = serve_passes(Engine(config), serve_masks[:SERVE_BATCH],
                               serve_masks[SERVE_BATCH:], op=op)
-        check(report.backend == serve_backend[op],
+        check(report.backend == want_backend,
               f"{op} service backend {report.backend!r}")
+        label = f"{op}[{want_backend}]"
         served = 0
         for outs, masks in [(report.cold, serve_masks[:SERVE_BATCH]),
                             (report.warm, serve_masks[SERVE_BATCH:]),
                             (report.cached, serve_masks[:SERVE_BATCH])]:
             for res, mask in zip(outs, masks):
                 max_abs_err(served_fields(op, res), plain_reference(op, mask),
-                            f"served {op} result {served}")
+                            f"served {label} result {served}")
                 served += 1
         check(report.cached_batches == 0,
-              f"{op}: cached pass dispatched {report.cached_batches} batches")
+              f"{label}: cached pass dispatched {report.cached_batches} "
+              f"batches")
         check(report.cached_hit_rate == 1.0,
-              f"{op}: cached pass hit rate {report.cached_hit_rate}")
+              f"{label}: cached pass hit rate {report.cached_hit_rate}")
         m = report.metrics
-        print(f"serve {op}: {served} served results equal the plain "
+        print(f"serve {label}: {served} served results equal the plain "
               f"reference; cold {report.t_cold * 1e3:.1f} ms, warm "
               f"{report.t_warm * 1e3:.1f} ms ({report.warm_mpx_s:.0f} "
               f"Mpx/s), cached {report.t_cached * 1e3:.1f} ms; p50 "
               f"{m.p50_latency_ms:.1f} ms p95 {m.p95_latency_ms:.1f} ms over "
               f"{m.completed} requests on {card}", flush=True)
-        print(f"serve {op}: device batches per pass of {SERVE_BATCH} masks: "
+        print(f"serve {label}: device batches per pass of {SERVE_BATCH} masks: "
               + json.dumps(report.batches), flush=True)
-        print(f"serve {op}: warm pass by stage (s, summed over its "
+        print(f"serve {label}: warm pass by stage (s, summed over its "
               f"requests): " + json.dumps(report.warm_stage_s), flush=True)
         del report
         free()
@@ -640,8 +837,12 @@ def main() -> int:
     print(f"overload: burst of {len(burst)}: {admitted} admitted, {shed} "
           f"shed", flush=True)
 
-    for label, eng in [("full-column", Engine()),
-                       ("split-H", Engine(EngineConfig(stream_vmem_budget=0)))]:
+    for label, eng in [
+            ("full-column", Engine()),
+            ("split-H", Engine(EngineConfig(stream_vmem_budget=0))),
+            ("two-kernel full-column", cuda_engine),
+            ("two-kernel split-H",
+             Engine(EngineConfig(backend="cuda", stream_vmem_budget=0)))]:
         r = eng.analyze(scene).block_until_ready()
         n = int(r.n_hyperedges[0])
         check(n == SCENE_HYPEREDGES,
@@ -658,13 +859,138 @@ def main() -> int:
     del r
     free()
 
-    launches = {**kf.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES}
+    # the front end over loopback, on the two-kernel engine, at the largest
+    # masks its 64 MiB body limit carries (an 8192^2 uint8 mask is 89 MB
+    # of base64)
+    def crop(mask, res):
+        return np.ascontiguousarray(mask[:res, :res])
+
+    def wire_equal(got, want, label):
+        check(set(got) == set(want), f"{label}: fields {sorted(got)}")
+        for f, w in want.items():
+            w = w.cpu().numpy()
+            check(got[f].dtype == w.dtype and got[f].shape == w.shape
+                  and np.array_equal(got[f], w),
+                  f"{label}: field {f} differs from the plain reference")
+
+    fe_config = ServiceConfig(bucket_sides=(FRONTEND_RES, FRONTEND_BIG_RES),
+                              max_batch=SERVE_BATCH)
+    fe_batch = [crop(m, FRONTEND_RES) for m in serve_masks[:SERVE_BATCH]]
+    fe_big = crop(serve_masks[SERVE_BATCH], FRONTEND_BIG_RES)
+    fe_ccl = crop(serve_masks[SERVE_BATCH + 1], FRONTEND_RES)
+    fe_noisy = [crop(m, FRONTEND_RES) for m in float_masks[:2]]
+    with YCHGService(cuda_engine, fe_config) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        check(client.health()["backend"] == "cuda",
+              "the front end's engine does not resolve ychg to cuda")
+        t0 = time.perf_counter()
+        items = list(client.analyze_batch(fe_batch))
+        t_batch = time.perf_counter() - t0
+        check(sorted(it.id for it in items) == list(range(SERVE_BATCH))
+              and all(it.ok for it in items),
+              f"/v1/analyze_batch: {[(it.id, it.error) for it in items]}")
+        for it in items:
+            wire_equal(it.result, plain_reference("ychg", fe_batch[it.id]),
+                       f"/v1/analyze_batch mask {it.id}")
+        t0 = time.perf_counter()
+        got = client.analyze(fe_big, op="ychg")
+        t_big = time.perf_counter() - t0
+        wire_equal(got, plain_reference("ychg", fe_big), "/v1/ychg")
+        got = client.analyze(fe_ccl, op="ccl")
+        want = kccl.labels(torch.from_numpy(fe_ccl).to(DEV)[None])
+        wire_equal(got, {"labels": want.labels[0],
+                         "n_components": want.n_components[0]}, "/v1/ccl")
+        got = client.analyze(fe_noisy[0], op="denoise")
+        x = torch.from_numpy(fe_noisy[0]).to(DEV)[None]
+        float_err(torch.from_numpy(got["image"]).to(DEV),
+                  kdn.denoise_plain(x)[0], "/v1/denoise")
+        got = client.pipeline(fe_noisy[1], ["denoise", "ychg"])
+        x = torch.from_numpy(fe_noisy[1]).to(DEV)[None]
+        ref = ychg.analyze(kdn.denoise_plain(x)[0])
+        wire_equal(got, {f: getattr(ref, f) for f in fields}, "/v1/pipeline")
+        lat_count = check_metrics_page(client.metrics_text())
+    del items, got, want, x, ref
+    retry = overload_over_wire(cuda_engine, fe_config, fe_batch[0],
+                               fe_batch[1])
+    px = SERVE_BATCH * FRONTEND_RES ** 2
+    print(f"frontend: loopback HTTP over the cuda engine, every response "
+          f"equal to the plain reference: /v1/analyze_batch of "
+          f"{SERVE_BATCH} x {FRONTEND_RES}^2 in {t_batch * 1e3:.1f} ms "
+          f"({px / t_batch / 1e6:.1f} Mpx/s), /v1/ychg {FRONTEND_BIG_RES}^2 "
+          f"in {t_big * 1e3:.1f} ms ({FRONTEND_BIG_RES ** 2 / t_big / 1e6:.1f}"
+          f" Mpx/s), /v1/ccl, /v1/denoise and /v1/pipeline at "
+          f"{FRONTEND_RES}^2; /metrics parsed ({lat_count:.0f} latency "
+          f"observations tie out); a full queue answered 429 with "
+          f"Retry-After {retry:.3f} s; on {card}", flush=True)
+    free()
+
+    launches = {**kf.LAUNCHES, **kc.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES}
     for name in KERNELS:
         check(launches[name] > 0, f"the main path launched {name} no time")
     calls = {op: {b: registry.call_count(b, op) for b in
                   registry.backend_names(op)} for op in registry.registered_ops()}
     print(f"launches on the main path: {json.dumps(launches)}; backend "
           f"calls: {json.dumps(calls)}", flush=True)
+
+    # 5. for information: one engine call on the device-resident serving
+    # batch through each ychg kernel backend, then the paper's comparison:
+    # its serial baseline on
+    # the host against both card backends on a mask already on the card
+    x = torch.from_numpy(stack).to(DEV)
+    row = {}
+    for name, eng in [("cuda", cuda_engine), ("fused", engine)]:
+        eng.analyze_batch(x).block_until_ready()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            eng.analyze_batch(x).block_until_ready()
+            times.append(time.perf_counter() - t0)
+        row[name] = statistics.median(times) * 1e3
+    print(f"engine: one analyze_batch of the {SERVE_BATCH} x {SERVE_RES}^2 "
+          f"serving batch on the card: cuda (two kernels, "
+          f"{2 * SERVE_BATCH} launches) {row['cuda']:.3f} ms, fused (one "
+          f"launch) {row['fused']:.3f} ms (median of 5, host clock); {card}",
+          flush=True)
+    del x
+    serial_engine = Engine(EngineConfig(backend="serial"), device="cpu")
+    for res in [r for r in workload_config().resolutions
+                if r <= PAPER_MAX_RES] + [SCENE_RES]:
+        if res <= SERVE_RES:
+            mask, source = crop(serve_masks[0], res), "snowfield"
+        elif res <= SCENE_RES:
+            mask, source = crop(scene, res), "striped scene"
+        else:
+            continue
+        reps = 3 if res >= 8000 else 5
+        row = {}
+        outs = {}
+        for name, eng, x in [("serial", serial_engine, mask),
+                             ("cuda", cuda_engine,
+                              torch.from_numpy(mask).to(DEV)),
+                             ("fused", engine, torch.from_numpy(mask).to(DEV))]:
+            outs[name] = eng.analyze(x).block_until_ready().to_host()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                eng.analyze(x).block_until_ready()
+                times.append(time.perf_counter() - t0)
+            row[name] = statistics.median(times) * 1e3
+        for name in ("cuda", "fused"):
+            fields_equal = all(
+                outs[name][f].dtype == outs["serial"][f].dtype
+                and np.array_equal(outs[name][f], outs["serial"][f])
+                for f in fields)
+            check(fields_equal, f"paper comparison {res}^2: {name} differs "
+                                f"from serial")
+        print(f"paper: {res}^2 ({source}): serial {row['serial']:.3f} ms on "
+              f"the host, cuda (two kernels) {row['cuda']:.3f} ms, fused "
+              f"{row['fused']:.3f} ms on the card (median of {reps}, host "
+              f"clock, mask on the device); serial / cuda "
+              f"{row['serial'] / row['cuda']:.2f}x; all three equal; {card}",
+              flush=True)
+        del outs
+    free()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -67,7 +67,7 @@ class YCHGWorkloadConfig:
     hyperedge_resolution: int = 8192   # fixed resolution for knob (b)
     batch: int = 8                     # tiles per device batch
     engine: EngineSection = EngineSection()
-    backends: Tuple[str, ...] = ("torch", "fused")
+    backends: Tuple[str, ...] = ("scalar", "serial", "torch", "cuda", "fused")
 
 
 def config() -> YCHGWorkloadConfig:

@@ -14,8 +14,8 @@ kernel of ``repro_torch.kernels`` is held to, bit for bit, dtypes included.
 Dtypes follow the JAX package, which runs with x64 off: every count is
 int32 and ``transitions`` is bool. ``torch.sum`` of int32 or bool returns
 int64, so every reduction here names ``dtype=torch.int32``. Images may be
-bool or any integer or float dtype (nonzero = foreground), with any leading
-batch dims.
+bool or any integer or float dtype (nonzero = foreground, as
+:func:`foreground` decides it), with any leading batch dims.
 """
 
 from __future__ import annotations
@@ -26,11 +26,29 @@ import torch
 
 Tensor = torch.Tensor
 
+# float32 exponent field: all zero for +-0 and every subnormal
+F32_EXPONENT_BITS = 0x7F800000
 
-def _as_binary(img: Tensor) -> Tensor:
-    """Nonzero -> True. Accepts bool/uint8/int/float masks, any leading dims."""
+
+def foreground(img: Tensor) -> Tensor:
+    """The reference's foreground test, ``img != 0`` as the JAX package
+    computes it; a bool tensor of ``img``'s shape.
+
+    XLA on the CPU (and the TPU) flushes float32 subnormals to zero, so a
+    float32 value whose exponent bits are all zero (+-0 and every
+    subnormal) is background; NaN and +-inf are foreground. float64 is
+    rounded to float32 first, as the JAX package does with x64 off.
+    float16 and bfloat16 are not flushed: XLA:CPU's compiled compare keeps
+    their subnormals (the JAX package's eager ``core.ychg.analyze`` is the
+    one exception, for bfloat16; the port follows its jitted and kernel
+    paths).
+    """
     if img.dtype == torch.bool:
         return img
+    if img.dtype == torch.float64:
+        img = img.float()
+    if img.dtype == torch.float32:
+        return (img.view(torch.int32) & F32_EXPONENT_BITS) != 0
     return img != 0
 
 
@@ -42,7 +60,7 @@ def _shift_down(x: Tensor, dim: int) -> Tensor:
 
 def column_runs(img: Tensor) -> Tensor:
     """Step 1: (..., H, W) mask -> (..., W) int32 maximal runs per column."""
-    x = _as_binary(img)
+    x = foreground(img)
     # a run starts at row i where x[i] & ~x[i-1]; row 0 starts one if set
     rising = x & ~_shift_down(x, -2)
     return torch.sum(rising, dim=-2, dtype=torch.int32)

@@ -3,18 +3,27 @@
 Each ``run(imgs, config)`` maps a (B, H, W) tensor stack to the op's
 batched summary, bit-identical to the op's reference (``engine.ops``).
 
-  op       name   runs on     auto-picked on
-  ychg     torch  cpu, cuda   cpu (the plain reference, counterpart of ``jax``)
-  ychg     fused  cuda, cpu*  cuda (the hand-written CUDA kernels)
-  ccl      torch  cpu, cuda   cpu (``kernels.ccl.labels``)
-  ccl      cuda   cuda, cpu*  cuda (``csrc/ccl.cu``, then ``_canonicalize``)
-  denoise  torch  cpu, cuda   cpu (``kernels.denoise.denoise``)
-  denoise  cuda   cuda, cpu*  cuda (``csrc/denoise.cu``)
+  op       name    batch  runs on     auto-picked on
+  ychg     torch   yes    cpu, cuda   cpu (the plain reference, counterpart
+                                      of ``jax``)
+  ychg     fused   yes    cuda, cpu*  cuda (one launch for the whole stack)
+  ychg     cuda    no     cuda, cpu*  - (the paper's two kernels, two
+                                      launches an image; explicit only)
+  ychg     serial  no     cpu         - (the paper's NumPy CPU baseline)
+  ychg     scalar  no     cpu         - (per-pixel loops; tiny images only)
+  ccl      torch   yes    cpu, cuda   cpu (``kernels.ccl.labels``)
+  ccl      cuda    yes    cuda, cpu*  cuda (``csrc/ccl.cu``, then
+                                      ``_canonicalize``)
+  denoise  torch   yes    cpu, cuda   cpu (``kernels.denoise.denoise``)
+  denoise  cuda    yes    cuda, cpu*  cuda (``csrc/denoise.cu``)
 
   * on a CPU tensor a kernel backend runs its kernels' plain versions, as
     the JAX package's kernel backends run in interpret mode off the TPU:
     exact, not fast. ``cuda`` is the counterpart of the JAX package's
-    ``pallas`` backend of ``ccl`` and ``denoise``.
+    ``pallas`` backend of every op.
+
+``serial`` and ``scalar`` keep NumPy's float32 subnormals as foreground,
+as the JAX package's do (``core.serial``).
 
 None claims ``supports_mesh`` yet: the port has no mesh path, and
 ``EngineConfig.mesh_axis`` is kept only so JAX configs map over.
@@ -22,9 +31,12 @@ None claims ``supports_mesh`` yet: the port has no mesh path, and
 
 from __future__ import annotations
 
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Callable
 
-from repro_torch.core import ychg
+import numpy as np
+import torch
+
+from repro_torch.core import serial, ychg
 from repro_torch.core.ychg import YCHGSummary
 from repro_torch.engine.registry import BackendSpec, register_backend
 from repro_torch.kernels import ccl as kccl
@@ -48,6 +60,46 @@ def _run_fused(imgs, config: "EngineConfig") -> YCHGSummary:
     )
 
 
+def _run_cuda(imgs, config: "EngineConfig") -> YCHGSummary:
+    """The two-kernel path is single-image: one step-1 and one step-2
+    launch an image, as the JAX package's ``pallas`` backend does."""
+    if imgs.shape[0] == 0:
+        return ychg.analyze(imgs)
+    outs = [
+        kops.analyze(
+            imgs[i],
+            block_w=config.block_w,
+            block_h=config.block_h,
+            vmem_budget=config.stream_vmem_budget,
+        )
+        for i in range(imgs.shape[0])
+    ]
+    return YCHGSummary(**{k: torch.stack([o[k] for o in outs])
+                          for k in outs[0]})
+
+
+def _run_host(analyze: Callable) -> Callable:
+    """A backend running ``analyze`` (a ``core.serial`` function) on each
+    image on the host, its results stacked back onto the input's device."""
+
+    def run(imgs, config: "EngineConfig") -> YCHGSummary:
+        if imgs.shape[0] == 0:
+            return ychg.analyze(imgs)
+        x = imgs.cpu()
+        # the JAX package hands its host backends float32 (x64 is off);
+        # NumPy has no bfloat16, and float32 holds every bfloat16 exactly
+        if x.dtype in (torch.float64, torch.bfloat16):
+            x = x.float()
+        host = x.numpy()
+        dicts = [analyze(host[i]) for i in range(len(host))]
+        return YCHGSummary(**{
+            k: torch.from_numpy(np.stack([d[k] for d in dicts])).to(
+                imgs.device)
+            for k in dicts[0]})
+
+    return run
+
+
 register_backend(BackendSpec(
     name="torch", run=_run_torch, supports_batch=True, supports_mesh=False,
     device_kinds=("cpu", "cuda"),
@@ -58,6 +110,22 @@ register_backend(BackendSpec(
     device_kinds=("cuda", "cpu"),
     priority={"cuda": 100, "cpu": 40},
 ))
+register_backend(BackendSpec(
+    name="cuda", run=_run_cuda, supports_batch=False, supports_mesh=False,
+    device_kinds=("cuda", "cpu"),
+    priority={"cuda": 60, "cpu": 20},
+))
+register_backend(BackendSpec(
+    name="serial", run=_run_host(serial.analyze_numpy), supports_batch=False,
+    supports_mesh=False, device_kinds=("cpu",),
+    priority={"cpu": 10},
+))
+register_backend(BackendSpec(
+    name="scalar", run=_run_host(serial.analyze_scalar), supports_batch=False,
+    supports_mesh=False, device_kinds=("cpu",),
+    priority={"cpu": 1},
+))
+
 
 def _run_ccl_torch(imgs, config: "EngineConfig") -> kccl.CCLSummary:
     return kccl.labels(imgs)

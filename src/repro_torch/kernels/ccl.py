@@ -1,8 +1,9 @@
 """Connected-components labelling (CCL): plain PyTorch version + CUDA kernel.
 
 The port's counterpart of ``repro.kernels.ccl``. Every foreground pixel
-(nonzero) starts as its own component seeded with its linear index + 1,
-and 4-neighbour min propagation drives each component to a unique
+(nonzero, as ``core.ychg.foreground`` decides it) starts as its own
+component seeded with its linear index + 1, and 4-neighbour min
+propagation drives each component to a unique
 fixpoint: the component's minimum linear index + 1, 0 on background. The
 fixpoint does not depend on the schedule, so any algorithm that reaches
 it gives the same labels. ``_canonicalize`` then re-ranks roots to
@@ -18,7 +19,8 @@ labels invariant under the service's pad-to-bucket batching.
   ``ccl_fixpoint``        the wrapper: ``csrc/ccl.cu`` (union-find in
                           device memory; the source states its design) on a
                           CUDA tensor, the plain version on a CPU tensor;
-  ``labels_kernel``       ``_canonicalize(ccl_fixpoint(stack), stack != 0)``.
+  ``labels_kernel``       ``_canonicalize(ccl_fixpoint(stack),
+                          foreground(stack))``.
 
 ``_canonicalize`` is a plain helper outside the TPU kernel in the
 reference too, and stays torch ops here. ``LAUNCHES["ccl"]`` counts kernel
@@ -34,6 +36,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.core.ychg import foreground
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -114,7 +117,7 @@ def fixpoint_with_sweeps(stack: Tensor) -> Tuple[Tensor, int]:
     on one 2048^2 ``snowfield`` mask); with hooking and full jumping the
     same mask takes 6.
     """
-    fg = stack != 0
+    fg = foreground(stack)
     b, h, w = fg.shape
     if h * w == 0:
         return torch.zeros((b, h, w), dtype=torch.int32,
@@ -174,7 +177,7 @@ def _canonicalize(lab: Tensor, fg: Tensor) -> CCLSummary:
 
 def labels(stack: Tensor) -> CCLSummary:
     """Reference: (B, H, W) stack of any dtype -> canonical CCL summary."""
-    return _canonicalize(ccl_fixpoint_plain(stack), stack != 0)
+    return _canonicalize(ccl_fixpoint_plain(stack), foreground(stack))
 
 
 # ---------------------------------------------------------------- wrappers
@@ -195,7 +198,7 @@ def ccl_fixpoint(stack: Tensor) -> Tensor:
 
 def labels_kernel(stack: Tensor) -> CCLSummary:
     """Canonical labels through :func:`ccl_fixpoint`."""
-    return _canonicalize(ccl_fixpoint(stack), stack != 0)
+    return _canonicalize(ccl_fixpoint(stack), foreground(stack))
 
 
 def launch(stack: Tensor) -> Tensor:
@@ -206,7 +209,7 @@ def launch(stack: Tensor) -> Tensor:
     x = stack.contiguous()
     code = _KERNEL_DTYPES.get(x.dtype)
     if code is None:  # one device pass to a 0/1 byte mask
-        x, code = x != 0, 0
+        x, code = foreground(x), 0
     b, h, w = x.shape
     if b > _MAX_GRID_YZ:
         raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a launch")

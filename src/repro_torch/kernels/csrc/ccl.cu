@@ -64,6 +64,14 @@ __device__ __forceinline__ int foreground(T v) {
   return v != T(0);
 }
 
+// float32 as the reference's XLA decides it: +-0 and every subnormal (all
+// exponent bits zero) are background, NaN and +-inf foreground. Tested on
+// the bits, so no compiler flush mode can change it.
+template <>
+__device__ __forceinline__ int foreground<float>(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) != 0u;
+}
+
 // Root (1-based) of the tree holding the 1-based label x.
 __device__ __forceinline__ int find_root(const int* L, int x) {
   int p = __ldcg(L + x - 1);

@@ -27,17 +27,26 @@
 //    converted in the kernel, as the reference's astype(float32) does.
 //  * Bit parity with the reference: the arithmetic is the reference's,
 //    operation for operation. The nine taps are added left to right in
-//    row-major order; the centre tap of the sum of squares is one fused
-//    multiply-add, as XLA:CPU contracts it (__fmaf_rn); every other add and
-//    multiply is __fadd_rn / __fmul_rn / __fsub_rn, because nvcc contracts
-//    a * b + c into an FMA by default; sqrt is IEEE (__fsqrt_rn). A NaN
-//    comparison is false, so a NaN pixel passes through, as jnp.where does.
+//    row-major order; two multiply-adds are fused, as XLA:CPU contracts
+//    them: the centre tap of the sum of squares and the deviation
+//    x - mean = fma(-sum, 1/9, x) (__fmaf_rn); every other add and
+//    multiply is __fadd_rn / __fmul_rn, because nvcc contracts a * b + c
+//    into an FMA by default; sqrt is IEEE (__fsqrt_rn). A NaN comparison
+//    is false, so a NaN pixel passes through, as jnp.where does.
+//  * Subnormals as the reference's XLA treats float32: each arithmetic
+//    step reads a subnormal as zero and writes a subnormal result as a zero
+//    of its sign. The tile holds the flushed pixels, and the library is
+//    built with -ftz=true, so that __fadd_rn, __fmul_rn, __fmaf_rn and
+//    __fsqrt_rn flush their results too. The select passes the centre
+//    pixel through as it was read, unflushed, as the reference's does.
 //
 // Binding: a plain C entry point, loaded with ctypes. It launches on the
 // stream it is given, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -54,6 +63,12 @@ __device__ __forceinline__ float to_float(int32_t v) { return __int2float_rn(v);
 __device__ __forceinline__ float to_float(float v) { return v; }
 
 __device__ __forceinline__ float sq(float v) { return __fmul_rn(v, v); }
+
+// v, or a zero of its sign when v is subnormal; tested on the bits.
+__device__ __forceinline__ float flush(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x7f800000u) ? v : __uint_as_float(u & 0x80000000u);
+}
 
 // Grid (ceil(W / kTileW), ceil(H / kTileH), B), block kTileW x kTileH.
 template <typename T>
@@ -72,7 +87,8 @@ denoise_kernel(const T* __restrict__ img, int64_t H, int64_t W,
     const int64_t r = r0 + ty - 1;
     const int64_t c = c0 + tx - 1;
     float v = 0.0f;
-    if (r >= 0 && r < H && c >= 0 && c < W) v = to_float(src[r * W + c]);
+    if (r >= 0 && r < H && c >= 0 && c < W)
+      v = flush(to_float(src[r * W + c]));
     tile[ty][tx] = v;
   }
   __syncthreads();
@@ -106,10 +122,12 @@ denoise_kernel(const T* __restrict__ img, int64_t H, int64_t W,
   q = __fadd_rn(q, sq(t22));
 
   const float ninth = static_cast<float>(1.0 / 9.0);
-  const float mean = __fmul_rn(s, ninth);
   const float rms = __fsqrt_rn(__fmul_rn(q, ninth));
-  const float dev = fabsf(__fsub_rn(t11, mean));
-  out[b * H * W + r * W + c] = dev > __fmul_rn(0.75f, rms) ? rms : t11;
+  const float dev = fabsf(__fmaf_rn(-s, ninth, t11));
+  // only a float32 input can hold a subnormal, which the tile flushed
+  float centre = t11;
+  if constexpr (std::is_same<T, float>::value) centre = src[r * W + c];
+  out[b * H * W + r * W + c] = dev > __fmul_rn(0.75f, rms) ? rms : centre;
 }
 
 template <typename T>

@@ -57,6 +57,14 @@ __device__ __forceinline__ int foreground(T v) {
   return v != T(0);
 }
 
+// float32 as the reference's XLA decides it: +-0 and every subnormal (all
+// exponent bits zero) are background, NaN and +-inf foreground. Tested on
+// the bits, so no compiler flush mode can change it.
+template <>
+__device__ __forceinline__ int foreground<float>(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) != 0u;
+}
+
 // Step 1 over `rows` rows of one column, starting at p, entered with the
 // foreground bit of the row above (0 at the top of the image).
 template <typename T>

@@ -13,11 +13,16 @@ makes the filter invariant under the service's pad-to-bucket batching.
 ``denoise_plain`` (= ``denoise``, the reference) repeats the JAX
 reference's float32 arithmetic operation for operation, as XLA:CPU
 evaluates it: the nine taps are added left to right in row-major order;
-the centre tap of the sum of squares is one fused multiply-add,
-``fma(x, x, partial)`` (XLA contracts that one add and no other), which
-the plain version rounds once, exactly; and ``sqrt`` is correctly
-rounded (PyTorch's float32 CPU ``sqrt`` is not, so it is taken in float64
-and rounded back, which is exact for sqrt since 53 >= 2 * 24 + 2).
+two multiply-adds are fused, as XLA:CPU contracts them (``vfmadd`` and
+``vfnmadd`` in its code): the centre tap of the sum of squares,
+``fma(x, x, partial)``, and the deviation ``x - mean`` as
+``fma(-sum, 1/9, x)``; the plain version rounds each once, exactly; and
+``sqrt`` is correctly rounded (PyTorch's float32 CPU ``sqrt`` is not, so it
+is taken in float64 and rounded back, which is exact for sqrt since
+53 >= 2 * 24 + 2). XLA:CPU also flushes float32 subnormals: each
+arithmetic step reads a subnormal input as zero and writes a subnormal
+result as zero of its sign (:func:`_ftz` after every rounded step), while
+the final select passes the pixel itself through unflushed.
 
 ``denoise_kernel(stack)`` launches ``csrc/denoise.cu`` on a CUDA tensor
 (which states its design and what bounds it) and runs the plain version on
@@ -32,6 +37,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.ychg import F32_EXPONENT_BITS
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -49,6 +55,7 @@ _NINTH = 1.0 / 9.0
 _KERNEL_DTYPES = {torch.uint8: 0, torch.bool: 0, torch.int32: 1,
                   torch.float32: 2}
 _MAX_GRID_YZ = 65535
+_F32_SIGN_BIT = torch.iinfo(torch.int32).min  # 0x80000000 as an int32
 _TILE_H = 8  # rows of one block's output tile (kTileH in csrc/denoise.cu)
 
 LAUNCHES: Dict[str, int] = {"denoise": 0}
@@ -76,27 +83,24 @@ class DenoiseSummary:
 # ----------------------------------------------------------- plain version
 
 
-def _window_sum(x: Tensor) -> Tensor:
-    """Sum of the zero-padded 3x3 window around each pixel, (B, H, W); the
-    taps are added left to right in row-major order."""
-    p = torch.nn.functional.pad(x, (1, 1, 1, 1))
-    return (
-        p[:, :-2, :-2] + p[:, :-2, 1:-1] + p[:, :-2, 2:]
-        + p[:, 1:-1, :-2] + p[:, 1:-1, 1:-1] + p[:, 1:-1, 2:]
-        + p[:, 2:, :-2] + p[:, 2:, 1:-1] + p[:, 2:, 2:]
-    )
+def _ftz(t: Tensor) -> Tensor:
+    """float32 ``t`` with every subnormal flushed to a zero of its sign, as
+    XLA:CPU reads and writes float32 under its flush-to-zero mode. Tested
+    on the bits, so PyTorch's own denormal mode cannot change it."""
+    bits = t.view(torch.int32)
+    zero = (bits & _F32_SIGN_BIT).view(torch.float32)
+    return torch.where((bits & F32_EXPONENT_BITS) == 0, zero, t)
 
 
-def _fma_sq(x: Tensor, partial: Tensor) -> Tensor:
-    """float32 ``fma(x, x, partial)``, rounded once.
+def _fma(x: Tensor, y: Tensor, partial: Tensor) -> Tensor:
+    """float32 ``fma(x, y, partial)``, rounded once.
 
-    x * x is exact in float64 (48 significant bits); the add is taken in
+    x * y is exact in float64 (48 significant bits); the add is taken in
     float64 with its rounding error recovered by TwoSum and then rounded
     to odd, so the final cast to float32 rounds once, correctly (53 >=
     24 + 2). Infinite and NaN sums pass through unchanged.
     """
-    p = x.double()
-    p = p * p
+    p = x.double() * y.double()
     a = partial.double()
     s = a + p
     bp = s - a
@@ -109,23 +113,42 @@ def _fma_sq(x: Tensor, partial: Tensor) -> Tensor:
     return torch.where(inexact, torch.nextafter(s, toward), s).float()
 
 
+def _fma_sq(x: Tensor, partial: Tensor) -> Tensor:
+    """float32 ``fma(x, x, partial)``, rounded once."""
+    return _fma(x, x, partial)
+
+
 def _sqrt_rn(v: Tensor) -> Tensor:
     """Correctly rounded float32 sqrt (float64 sqrt rounded back)."""
     return torch.sqrt(v.double()).float()
 
 
+def _taps(p: Tensor, h: int, w: int) -> list:
+    """The nine (B, h, w) views of a padded stack, in row-major order."""
+    return [p[:, i:i + h, j:j + w] for i in range(3) for j in range(3)]
+
+
 def _filter(x: Tensor) -> Tensor:
     """The shared arithmetic path: (B, H, W) float32 -> float32."""
-    ninth = torch.tensor(_NINTH, dtype=torch.float32, device=x.device)
-    mean = _window_sum(x) * ninth
-    q = torch.nn.functional.pad(x, (1, 1, 1, 1))
-    q = q * q
     h, w = x.shape[-2:]
-    taps = [q[:, i:i + h, j:j + w] for i in range(3) for j in range(3)]
-    s2 = _fma_sq(x, taps[0] + taps[1] + taps[2] + taps[3])
-    s2 = s2 + taps[5] + taps[6] + taps[7] + taps[8]
-    rms = _sqrt_rn(s2 * ninth)
-    return torch.where(torch.abs(x - mean) > TAU * rms, rms, x)
+    xf = _ftz(x)
+    ninth = torch.tensor(_NINTH, dtype=torch.float32, device=x.device)
+    taps = _taps(torch.nn.functional.pad(xf, (1, 1, 1, 1)), h, w)
+    s = taps[0]
+    for t in taps[1:]:
+        s = _ftz(s + t)
+    q = torch.nn.functional.pad(xf, (1, 1, 1, 1))
+    taps = _taps(_ftz(q * q), h, w)
+    s2 = taps[0]
+    for t in taps[1:4]:
+        s2 = _ftz(s2 + t)
+    s2 = _ftz(_fma_sq(xf, s2))
+    for t in taps[5:]:
+        s2 = _ftz(s2 + t)
+    del q, taps
+    rms = _sqrt_rn(_ftz(s2 * ninth))
+    dev = torch.abs(_ftz(_fma(-s, ninth.expand_as(s), xf)))
+    return torch.where(dev > TAU * rms, rms, x)
 
 
 def denoise_plain(stack: Tensor) -> Tensor:

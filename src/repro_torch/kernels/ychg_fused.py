@@ -16,8 +16,10 @@ Each wrapper takes a contiguous (B, H, W) tensor and returns a dict of
 ``n_hyperedges``, ``n_transitions`` (B,), with the dtypes of
 ``core.ychg.analyze`` (int32, transitions bool). A CUDA tensor launches the
 kernel, or the wrapper raises; only a tensor on the CPU takes the plain
-version. The kernels read uint8, bool, int32 and float32 masks in place;
-any other dtype first goes through one ``(x != 0)`` pass on the device.
+version. The kernels read uint8, bool, int32 and float32 masks in place
+(float32 by its exponent bits: +-0 and subnormals are background, as
+``core.ychg.foreground`` says); any other dtype first goes through one
+``foreground`` pass on the device.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
 main path went through the kernels.
@@ -30,6 +32,7 @@ from typing import Dict
 
 import torch
 
+from repro_torch.core.ychg import foreground
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -86,14 +89,14 @@ def _rising_count(rows: Tensor, above: Tensor) -> Tensor:
 
 def ychg_fused_full_plain(imgs: Tensor) -> Dict[str, Tensor]:
     """Plain PyTorch version of ``ychg_fused_full``: whole columns."""
-    x = imgs != 0
+    x = foreground(imgs)
     return _step2(_rising_count(x, torch.zeros_like(x[:, :1])))
 
 
 def ychg_fused_splith_plain(imgs: Tensor, block_h: int) -> Dict[str, Tensor]:
     """Plain PyTorch version of ``ychg_fused_splith``: per-segment counts,
     each segment entered with the row above it, summed."""
-    x = imgs != 0
+    x = foreground(imgs)
     b, h, w = x.shape
     runs = torch.zeros(b, w, dtype=torch.int32, device=x.device)
     zero_row = torch.zeros(b, 1, w, dtype=torch.bool, device=x.device)
@@ -146,7 +149,7 @@ def _kernel_input(imgs: Tensor) -> tuple[Tensor, int]:
     _check(imgs)
     code = _KERNEL_DTYPES.get(imgs.dtype)
     if code is None:  # one device pass to a 0/1 byte mask
-        return imgs != 0, 0
+        return foreground(imgs), 0
     return imgs, code
 
 

@@ -1,5 +1,6 @@
 """The port's serve command: ``--workload ychg`` runs the paper's
-image-analysis service in-process, on the card.
+image-analysis service on the card, in-process or over the network front
+end.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
@@ -8,22 +9,33 @@ Usage:
       --op ccl --res 8192 --batch 8           # another op
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --overload --device cpu
+  # network modes (repro_torch.frontend):
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --listen 127.0.0.1:8788                 # serve over loopback HTTP
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --connect http://127.0.0.1:8788         # drive a running server
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --res 64 --batch 4 --frontend-smoke --device cpu   # end-to-end assert
 
 The counterpart of ``repro.launch.serve``'s in-process ``ychg`` pass
-(``serve_ychg``), with its ``--op`` and ``--overload`` legs;
-:func:`pipeline_pass` serves masks through an op chain. The network front
-end, fleet, scene and LM modes come in later slices.
+(``serve_ychg``), with its ``--op`` and ``--overload`` legs, and of its
+``--listen``, ``--connect`` and ``--frontend-smoke`` network modes;
+:func:`pipeline_pass` serves masks through an op chain. Every mode runs
+the engine on the card unless ``--device cpu`` is given. The fleet, scene
+and LM modes come in later slices.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import threading
 import time
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.data import modis
 
 
@@ -236,6 +248,244 @@ def serve_ychg(args) -> ServeReport:
     return report
 
 
+def _parse_hostport(s: str, default_host: str = "127.0.0.1"):
+    """"HOST:PORT", ":PORT", "PORT" or "http://HOST:PORT" -> (host, port)."""
+    if "//" in s:
+        s = s.split("//", 1)[1]
+    s = s.rstrip("/")
+    host, _, port = s.rpartition(":")
+    return (host or default_host), int(port)
+
+
+def _service_config(args, **overrides):
+    from repro_torch.service import ServiceConfig
+
+    sides = (tuple(int(b) for b in args.buckets.split(","))
+             if args.buckets else (args.res,))
+    knobs = dict(bucket_sides=sides, max_batch=args.batch,
+                 max_queue_depth=args.max_queue_depth,
+                 bucket_queue_depth=args.bucket_queue_depth,
+                 overload_policy=args.policy)
+    knobs.update(overrides)
+    return ServiceConfig(**knobs)
+
+
+def serve_listen(args) -> None:
+    """Serve the image service over HTTP (and the framed TCP RPC with
+    ``--rpc-listen``) until interrupted."""
+    from repro_torch.engine import Engine
+    from repro_torch.frontend import ServerThread
+    from repro_torch.service import YCHGService
+
+    host, port = _parse_hostport(args.listen)
+    rpc_port = (_parse_hostport(args.rpc_listen)[1]
+                if args.rpc_listen else None)
+    engine = Engine(device=args.device)
+    with YCHGService(engine, _service_config(args)) as svc:
+        with ServerThread(svc, host=host, port=port,
+                          rpc_port=rpc_port) as srv:
+            extra = (f" (rpc on {host}:{srv.rpc_port})"
+                     if rpc_port is not None else "")
+            print(f"yCHG frontend listening on http://{host}:{srv.port}"
+                  f"{extra}; engine on {engine.device}, buckets "
+                  f"{svc.config.bucket_sides}, max_batch "
+                  f"{svc.config.max_batch}", flush=True)
+            try:
+                threading.Event().wait()
+            except KeyboardInterrupt:
+                print("shutting down", flush=True)
+                path = obs.auto_dump("serve-shutdown")
+                if path:
+                    print(f"flight recorder dumped to {path}", flush=True)
+
+
+def serve_connect(args) -> None:
+    """Client mode: drive a running front end with ``--batch`` masks at
+    ``--res`` in one streamed batch and report the wire time."""
+    from repro_torch.frontend import YCHGClient
+
+    host, port = _parse_hostport(args.connect)
+    masks = derived_masks(args.res, args.batch)
+    px = args.batch * args.res * args.res
+    with YCHGClient(host, port) as client:
+        health = client.wait_ready(timeout=60.0)
+        print(f"connected to {host}:{port}: backend {health['backend']}")
+        t0 = time.perf_counter()
+        items = list(client.analyze_batch(masks))
+        dt = time.perf_counter() - t0
+        failed = [it for it in items if not it.ok]
+        if failed:
+            raise SystemExit(
+                f"{len(failed)} of {len(items)} requests failed; first: "
+                f"{failed[0].status} {failed[0].error}")
+        edges = [int(it.result["n_hyperedges"]) for it in
+                 sorted(items, key=lambda it: it.id)]
+        print(f"  wire  {dt * 1e3:8.1f}ms for {args.batch} x {args.res}^2 "
+              f"masks ({px / dt / 1e6:.0f} Mpx/s); hyperedges: {edges}")
+
+
+def check_metrics_page(text: str) -> float:
+    """Parse a ``/metrics`` page; every histogram series must have its
+    buckets, ``_sum`` and ``_count``, the buckets cumulative and ending at
+    the count, and the latency histograms' total count must equal
+    completed minus cache-served requests. Returns that count; raises
+    ``SystemExit`` on any failure."""
+    from repro_torch.obs import base_family, parse_prom_text
+
+    page = parse_prom_text(text)
+    lat_count = 0.0
+    for fam in sorted(n for n, t in page.types.items() if t == "histogram"):
+        series = {}
+        for smp in page.samples:
+            if base_family(smp.name) != fam:
+                continue
+            key = tuple(p for p in smp.labels if p[0] != "le")
+            d = series.setdefault(key, {"b": [], "sum": None, "count": None})
+            if smp.name.endswith("_bucket"):
+                d["b"].append(smp.value)
+            elif smp.name.endswith("_sum"):
+                d["sum"] = smp.value
+            elif smp.name.endswith("_count"):
+                d["count"] = smp.value
+        for key, d in series.items():
+            if d["sum"] is None or d["count"] is None or not d["b"]:
+                raise SystemExit(
+                    f"metrics: histogram {fam} series {dict(key)} is "
+                    f"missing _sum/_count/buckets")
+            if d["b"] != sorted(d["b"]) or d["b"][-1] != d["count"]:
+                raise SystemExit(
+                    f"metrics: histogram {fam} series {dict(key)} buckets "
+                    f"disagree with _count")
+            if fam == "ychg_request_latency_seconds":
+                lat_count += d["count"]
+
+    def scalar(name):
+        vals = [smp.value for smp in page.samples
+                if smp.name == name and not smp.labels]
+        return vals[0] if vals else 0.0
+
+    want = (scalar("ychg_completed_total")
+            - scalar("ychg_completed_from_cache_total"))
+    if lat_count != want:
+        raise SystemExit(f"metrics: latency histogram count {lat_count} != "
+                         f"completed-minus-cached {want}")
+    return lat_count
+
+
+def overload_over_wire(engine, config, hold_mask, mask) -> float:
+    """One admission slot, held by an in-process submit parked in a long
+    delay window, so a wire request sheds deterministically: it must come
+    back HTTP 429 with a positive Retry-After, and the shed counters must
+    move in ``/metrics``. Returns the 429's ``retry_after_s``."""
+    from repro_torch.frontend import (
+        FrontendOverloaded,
+        ServerThread,
+        YCHGClient,
+    )
+    from repro_torch.service import YCHGService
+
+    ocfg = dataclasses.replace(config, max_delay_ms=10_000.0,
+                               max_queue_depth=1, bucket_queue_depth=1,
+                               overload_policy="shed")
+    with YCHGService(engine, ocfg) as osvc:
+        holder = osvc.submit(hold_mask)
+        with ServerThread(osvc) as srv, \
+                YCHGClient("127.0.0.1", srv.port) as client:
+            try:
+                client.analyze(mask)
+                raise SystemExit("overload: expected HTTP 429, got a result")
+            except FrontendOverloaded as e:
+                retry = e.retry_after_s
+                if not retry > 0:
+                    raise SystemExit("overload: 429 carried no positive "
+                                     "retry_after_s")
+            metrics = client.metrics_text()
+        for needle in ("ychg_shed_total 1", "ychg_shed_bucket_total{"):
+            if needle not in metrics:
+                raise SystemExit(f"overload: {needle!r} missing from "
+                                 f"/metrics after a shed")
+    holder.result(timeout=600)   # the admitted request still resolves
+    return retry
+
+
+def frontend_smoke(args) -> None:
+    """End-to-end assert over a real loopback socket (ephemeral port):
+
+      1. a streamed client batch is BIT-IDENTICAL (values, dtypes, shapes)
+         to in-process ``YCHGService.submit`` on the same masks;
+      2. one traced request leaves a single flight-recorder trace whose
+         spans cover client -> frontend -> scheduler -> engine in order
+         (skipped under ``YCHG_TRACE=0``);
+      3. every ``/metrics`` series parses as Prometheus text and the
+         latency histogram ties out against the request counters;
+      4. at a full admission queue the wire answer is HTTP 429 with a
+         Retry-After, and the shed counters move in ``/metrics``.
+
+    Exits nonzero on any failure.
+    """
+    from repro_torch.engine import Engine
+    from repro_torch.frontend import ServerThread, YCHGClient
+    from repro_torch.service import YCHGService
+
+    masks = derived_masks(args.res, args.batch + 1)
+    masks, fresh = masks[:args.batch], masks[args.batch]
+    engine = Engine(device=args.device)
+    config = _service_config(args)
+    with YCHGService(engine, config) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        items = {it.id: it for it in client.analyze_batch(masks)}
+        want = [svc.submit(m).result(timeout=600).to_host() for m in masks]
+        for i, host_res in enumerate(want):
+            item = items.get(i)
+            if item is None or not item.ok:
+                raise SystemExit(f"frontend smoke: mask {i} failed over the "
+                                 f"wire: {item and item.error}")
+            for field, arr in host_res.items():
+                a, b = np.asarray(arr), item.result[field]
+                if not (np.array_equal(a, b) and a.dtype == b.dtype
+                        and a.shape == b.shape):
+                    raise SystemExit(
+                        f"frontend smoke: field {field!r} of mask {i} is "
+                        f"not bit-identical over the wire")
+        print(f"frontend smoke: {len(masks)} masks round-tripped over "
+              f"loopback HTTP bit-identical to in-process submit on "
+              f"{engine.device} ({svc.metrics().backend})", flush=True)
+
+        if obs.tracing_enabled():
+            tid = obs.new_trace_id()
+            client.analyze(fresh, trace_id=tid)
+            events = [e for e in client.debug_traces().get("traceEvents", [])
+                      if e.get("args", {}).get("trace_id") == tid]
+            names = {e["name"] for e in events}
+            needed = {"client.encode", "client.wire", "frontend.parse",
+                      "cache.probe", "scheduler.admission",
+                      "scheduler.queue_wait", "scheduler.flush",
+                      "engine.compute", "engine.crop"}
+            if needed - names:
+                raise SystemExit(f"frontend smoke [trace]: spans missing "
+                                 f"from the flight recorder: "
+                                 f"{sorted(needed - names)}")
+            ts = {e["name"]: e["ts"] for e in events}
+            chain = ["client.encode", "frontend.parse",
+                     "scheduler.admission", "engine.compute", "engine.crop"]
+            for a, b in zip(chain, chain[1:]):
+                if ts[b] < ts[a]:   # same process, same clock: strict
+                    raise SystemExit(f"frontend smoke [trace]: span {b!r} "
+                                     f"starts before {a!r}")
+            print("frontend smoke: one trace covers client -> frontend -> "
+                  "scheduler -> engine with ordered spans", flush=True)
+
+        lat_count = check_metrics_page(client.metrics_text())
+        print(f"frontend smoke: /metrics parsed clean; latency histogram "
+              f"count {lat_count:.0f} ties out against the request "
+              f"counters", flush=True)
+
+    overload_over_wire(engine, config, masks[0], masks[1])
+    print("frontend smoke: overload answered 429 with Retry-After and the "
+          "per-bucket shed counter moved", flush=True)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workload", default="ychg", choices=["ychg"])
@@ -249,7 +499,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
                     help="default: the CUDA device; 'cpu' is the only way "
                          "onto the CPU")
-    serve_ychg(ap.parse_args(argv))
+    ap.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="serve over HTTP until interrupted")
+    ap.add_argument("--rpc-listen", default=None, metavar="HOST:PORT",
+                    help="with --listen: also serve the framed TCP RPC")
+    ap.add_argument("--connect", default=None, metavar="URL",
+                    help="run the workload against a running front end "
+                         "(http://HOST:PORT)")
+    ap.add_argument("--frontend-smoke", action="store_true",
+                    help="loopback HTTP end-to-end assert (bit-identical "
+                         "round trip, trace, /metrics, 429 on overload)")
+    ap.add_argument("--buckets", default=None,
+                    help="comma-separated bucket sides (default: --res)")
+    ap.add_argument("--max-queue-depth", type=int, default=None)
+    ap.add_argument("--bucket-queue-depth", type=int, default=None)
+    ap.add_argument("--policy", default="block", choices=["block", "shed"],
+                    help="overload policy for --listen/--frontend-smoke")
+    args = ap.parse_args(argv)
+    if args.frontend_smoke:
+        frontend_smoke(args)
+    elif args.listen:
+        serve_listen(args)
+    elif args.connect:
+        serve_connect(args)
+    else:
+        serve_ychg(args)
 
 
 if __name__ == "__main__":

@@ -6,7 +6,7 @@ kernel modules: the card's probes answer as if one card were present, every
 ``launch`` runs its plain version and counts itself, the kernel wrappers
 route through those launches, and ``Engine()`` lands on the CPU while
 resolving backends as it would on the card. It shows that every phase runs
-and that the main path reaches all four kernels; it says nothing about the
+and that the main path reaches all seven kernels; it says nothing about the
 kernels themselves, which only a run on the card can check.
 """
 
@@ -33,6 +33,7 @@ REHEARSAL = textwrap.dedent("""
     torch.cuda.device_count = lambda: 1
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.empty_cache = lambda: None
+    torch.cuda.current_stream = lambda *a: type("S", (), {"cuda_stream": 0})
 
     class Event:
         def __init__(self, enable_timing=False):
@@ -49,12 +50,21 @@ REHEARSAL = textwrap.dedent("""
     import chip_smoke as cs
     from repro_torch.engine import engine as em
     from repro_torch.kernels import _build, ccl, denoise, ychg_fused as kf
+    from repro_torch.kernels import ychg_colscan as kc
 
     cs.DEV = "cpu"
     cs.SERVE_RES, cs.SCENE_RES = 64, 120
     cs.SCENE_HYPEREDGES, cs.SCENE_BLOCK_H = 50, 16
+    cs.FRONTEND_RES, cs.FRONTEND_BIG_RES = 32, 64
     cs.card_line = lambda: "CPU rehearsal, 0 W"
+    cs.ptx_float_ops = lambda source: {"add.rn.ftz.f32": 1}
     _build.build = lambda names: {n: 0.0 for n in names}
+
+    class NoLibrary:  # the C entry points timed alone do nothing here
+        def __getattr__(self, name):
+            return lambda *args: 0
+
+    _build.load = lambda name, signatures: NoLibrary()
 
     def counted(launches, name, plain):
         def launch(x, *a, **k):
@@ -70,6 +80,16 @@ REHEARSAL = textwrap.dedent("""
     kf.ychg_fused_full = lambda x: kf.launch_full(x)
     kf.ychg_fused_splith = lambda x, block_h=2048: kf.launch_splith(
         x, block_h=block_h)
+    kc.launch_full = counted(kc.LAUNCHES, "ychg_colscan_full",
+                             kc.colscan_full_plain)
+    kc.launch_splith = counted(
+        kc.LAUNCHES, "ychg_colscan_splith",
+        lambda x, block_h=2048: kc.colscan_splith_plain(x, block_h))
+    kc.launch_diff = counted(kc.LAUNCHES, "ychg_diff", kc.diff_plain)
+    kc.ychg_colscan_full = lambda x: kc.launch_full(x)
+    kc.ychg_colscan_splith = lambda x, block_h=2048: kc.launch_splith(
+        x, block_h=block_h)
+    kc.ychg_diff = lambda r: kc.launch_diff(r)
     denoise.launch = counted(denoise.LAUNCHES, "denoise",
                              denoise.denoise_plain)
     denoise.denoise_kernel = lambda s: denoise.DenoiseSummary(
@@ -101,9 +121,15 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert lines[-2] == "CPU rehearsal, 0 W"
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
-        "ychg_fused_full", "ychg_fused_splith", "denoise", "ccl"]
+        "ychg_fused_full", "ychg_fused_splith", "ychg_colscan_full",
+        "ychg_colscan_splith", "ychg_diff", "denoise", "ccl"]
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k["name"]
         assert k["library_ms"] is None and k["bound_by"] == "bytes"
     assert "serve denoise+ychg: 8 served results equal" in out.stdout
+    assert "serve ychg[cuda]: 24 served results equal" in out.stdout
     assert "as op ccl gives 50 components" in out.stdout
+    assert "via the two-kernel split-H engine gives 50" in out.stdout
+    assert "frontend: loopback HTTP over the cuda engine" in out.stdout
+    assert "paper: 120^2 (striped scene): serial" in out.stdout
+    assert "engine: one analyze_batch of the 8 x 64^2 serving" in out.stdout

@@ -7,10 +7,12 @@ Tolerances:
   * float32 inputs: every output within 1 ulp (``np.spacing``) of the JAX
     output, and at most 1 in 10^4 outputs differing at all (so none, at
     the sizes here). Reason: the reference's float32 arithmetic is XLA:CPU's,
-    which contracts the centre tap of the sum of squares into an FMA; the
-    plain version reproduces that FMA and a correctly rounded sqrt, and the
+    which contracts the centre tap of the sum of squares and the deviation
+    ``x - mean`` into FMAs and flushes subnormals; the plain version
+    reproduces those FMAs, the flush and a correctly rounded sqrt, and the
     bound leaves room for any other contraction XLA may choose on another
-    CPU (ROADMAP.md, Queue B 3).
+    CPU (ROADMAP.md, Queue B 3). ``tests/test_torch_subnormal.py`` holds
+    subnormal inputs bit for bit.
 """
 
 import numpy as np
@@ -69,9 +71,8 @@ def test_plain_matches_jax(shape, dtype, jax_fn):
 def test_float32_special_values_match_jax():
     """-0.0, NaN, +-inf, overflowing squares (3e38) and underflowing ones
     (1e-30) go through the same IEEE arithmetic: a NaN comparison is false,
-    so a NaN pixel passes through. Subnormal inputs are left out: XLA:CPU
-    flushes float32 subnormals to zero and the port keeps them (ROADMAP.md,
-    Queue C)."""
+    so a NaN pixel passes through. Subnormal inputs have their own module,
+    ``tests/test_torch_subnormal.py``."""
     rng = np.random.default_rng(5)
     vals = np.array([0.0, -0.0, 1.5, -2.0, np.nan, np.inf, -np.inf, 3e38,
                      1e-30], np.float32)

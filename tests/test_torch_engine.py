@@ -129,7 +129,8 @@ def test_auto_resolution_is_data():
     the registered specs and the platform key."""
     assert registry.resolve("auto", platform="cpu").name == "torch"
     assert registry.resolve("auto", platform="cuda").name == "fused"
-    assert set(registry.backend_names()) == {"torch", "fused"}
+    assert set(registry.backend_names()) == {"torch", "fused", "cuda",
+                                             "serial", "scalar"}
     eng = Engine(device="cpu")
     assert eng.platform == "cpu" and eng.resolve_backend() == "torch"
     assert Engine(EngineConfig(backend="fused"),
