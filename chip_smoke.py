@@ -9,7 +9,7 @@ each of which fails the run (non-zero exit, no result line) when it fails:
 
   1. the card: name and power limit as nvidia-smi reports them;
   2. the build: every CUDA source of the path (ychg_fused, ychg_colscan,
-     denoise, ccl), one nvcc each, in parallel;
+     denoise, ccl, ychg_packed), one nvcc each, in parallel;
   3. every kernel against its plain PyTorch version on the card, exactly
      (every field, dtype included), except denoise on float inputs, which
      is held to 1 ulp in at most 1 in 10^4 outputs (the differing count is
@@ -23,7 +23,15 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      kernel is timed at its main shapes, the lone 1 x 8192^2 mask the
      service flushes among them (CUDA events, median of 15 samples of 5
      back-to-back calls, after a warm-up), beside its plain version, its
-     bound and, for ccl, the canonical re-ranking alone;
+     bound and, for ccl, the canonical re-ranking alone. The two packed
+     kernels are held to their plain versions on the packed form of H = 1
+     to 9, W = 1 and ragged masks, all-one columns, checkerboards,
+     serpentines, four dtypes, float32 subnormals, the 4096^2 snowfield of
+     ``benchmarks/run.py::bench_kernel_packed`` and the scene, and the
+     fused one also to ``core.ychg.analyze`` on the unpacked mask; they
+     are timed on the packed scene and the packed 1 x 8192^2 mask, and
+     ``pack_rows`` (torch ops) alone and as a share of ``packed_analyze``
+     on the scene;
   4. the main path, with every launch counter set to 0 just before it:
      ``Engine().analyze_batch`` on 8 x 8192^2 uint8 masks for ychg (must
      resolve to ``fused``), ccl and denoise (must resolve to ``cuda``),
@@ -38,7 +46,15 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      the cached pass dispatches nothing; the device batches and stage
      seconds of each are printed); the overload burst; the 21000^2 scene
      through the full-column and split-H routes of both ychg kernel
-     backends and as op ``ccl`` (4,124,319 components); then the HTTP
+     backends, as op ``ccl`` (4,124,319 components) and through
+     ``packed_analyze`` and ``packed_colscan``, each equal to
+     ``Engine().analyze``; the scene tier: the scene written to a ``.npy``
+     and run as a memmap granule by ``BulkJob`` (2048-row strips in stacks
+     of 4) and by ``SceneRunner.analyze_scene``, both bit-identical to one
+     whole-scene ``Engine().analyze`` call (rate, stitch seconds and
+     device batches printed), and a two-granule synthetic 2048 x 8192 job
+     killed at stack 3, its newest checkpoint truncated, and resumed with
+     a warning to byte-identical ``.ychg`` files; then the HTTP
      front end over loopback on the ``cuda`` engine: 8 x 2048^2 masks
      through ``/v1/analyze_batch``, one 4096^2 mask through ``/v1/ychg``,
      ``/v1/ccl``, ``/v1/denoise`` and ``/v1/pipeline`` at 2048^2 (the
@@ -57,11 +73,15 @@ It prints the kernels' JSON line, the card line, and last
 
 from __future__ import annotations
 
+import glob
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -74,6 +94,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_PER_PIXEL = 3          # ychg: compare, and-not, add
+# packed ychg: shift, a three-input logic op (b & ~(s | carry)), popcount,
+# add, and the shift that takes the next byte's carry
+PACKED_OPS_PER_BYTE = 5
+PACK_OPS_PER_PIXEL = 3     # pack_rows: compare, shift, add
 DIFF_OPS_PER_COLUMN = 5    # ychg_diff: subtract, compare, two max, negate
 # denoise: 8 + 7 adds, 8 squares, 1 FMA (2), 2 multiplies by 1/9, sqrt,
 # subtract, abs, multiply by TAU, compare
@@ -86,6 +110,10 @@ CCL_OPS_PER_PIXEL = 12
 SERVE_RES, SERVE_BATCH = 8192, 8
 SCENE_RES, SCENE_HYPEREDGES = 21000, 4_124_319
 SCENE_BLOCK_H = 2048       # EngineConfig.block_h default
+PACKED_SNOW_RES = 4096     # benchmarks/run.py::bench_kernel_packed's mask
+BULK_TILE_H, BULK_STACK = 2048, 4   # the scene leg's strips and stacks
+# the kill-and-resume job: two synthetic granules of (H, W), in strips
+RESUME_H, RESUME_W, RESUME_TILE_H = 2048, 8192, 256
 DEV = "cuda"
 
 CSRC = "src/repro_torch/kernels/csrc/"
@@ -103,6 +131,10 @@ KERNELS = {
                   "src/repro/kernels/ychg_colscan.py:68"),
     "denoise": (CSRC + "denoise.cu", "src/repro/kernels/denoise.py:77"),
     "ccl": (CSRC + "ccl.cu", "src/repro/kernels/ccl.py:127"),
+    "ychg_packed_colscan": (CSRC + "ychg_packed.cu",
+                            "src/repro/kernels/ychg_packed.py:46"),
+    "ychg_packed_fused": (CSRC + "ychg_packed.cu",
+                          "src/repro/kernels/ychg_packed.py:78"),
 }
 YCHG_NOTE = ("no single PyTorch call computes per-column run counts with "
              "their neighbour diff and per-image totals")
@@ -118,6 +150,10 @@ LIBRARY_NOTES = {
                 "convolution gives the two window sums, not the outlier "
                 "test and the select"),
     "ccl": "no PyTorch call computes connected-component labels",
+    "ychg_packed_colscan": ("PyTorch has no popcount, and no single call "
+                            "counts runs per column"),
+    "ychg_packed_fused": ("PyTorch has no popcount, and no single call "
+                          "counts runs per column"),
 }
 IMPULSE_SHARE = 0.01       # impulse pixels in the float32 denoise inputs
 # float32 values around the reference's subnormal flush: +-0, subnormals of
@@ -164,6 +200,19 @@ def ptx_float_ops(source: str) -> dict:
                    capture_output=True, timeout=300)
     return dict(collections.Counter(re.findall(
         r"\b((?:add|sub|mul|fma|sqrt)\.[a-z.]*f32)", out.read_text())))
+
+
+def scene_span_seconds() -> dict:
+    """Seconds per span name summed over the scene traces in the flight
+    recorder (``scene.read``, ``scene.compute``, ``scene.stitch``, ...)."""
+    from repro_torch import obs
+
+    out: dict = {}
+    for tr in obs.recorder().traces():
+        if tr.process == "scene":
+            for name, t0, t1, _ in tr.spans():
+                out[name] = out.get(name, 0.0) + t1 - t0
+    return out
 
 
 def max_abs_err(got: dict, want: dict, label: str) -> int:
@@ -250,6 +299,28 @@ def bound_ccl(x) -> tuple[float, str, int]:
     against its integer work per pixel."""
     nbytes = x.numel() * (x.element_size() + 4)
     return _bound(nbytes, CCL_OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
+
+
+def bound_packed_colscan(p) -> tuple[float, str, int]:
+    """The same for the packed scan on one (ceil(H/8), W) uint8 mask: each
+    packed byte read once, 4 B a column of int32 runs written."""
+    nbytes = p.numel() + p.shape[-1] * 4
+    return _bound(nbytes, PACKED_OPS_PER_BYTE * p.numel() / PEAK_INT32_OPS_PER_S)
+
+
+def bound_packed_fused(p) -> tuple[float, str, int]:
+    """The same for the packed fused kernel: runs, cut vertices, births and
+    deaths (int32) and transitions (bool) a column, two int32 totals."""
+    nbytes = p.numel() + p.shape[-1] * (4 * 4 + 1) + 2 * 4
+    return _bound(nbytes, PACKED_OPS_PER_BYTE * p.numel() / PEAK_INT32_OPS_PER_S)
+
+
+def bound_pack_rows(x) -> tuple[float, str, int]:
+    """The same for ``pack_rows``: the (H, W) mask read once, its
+    (ceil(H/8), W) uint8 packing written once."""
+    h, w = x.shape
+    nbytes = x.numel() * x.element_size() + -(-h // 8) * w
+    return _bound(nbytes, PACK_OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
 
 
 def float_err(got, want, label: str) -> tuple[float, int]:
@@ -425,6 +496,48 @@ def kernel_cases(np, torch, modis):
     return cases
 
 
+def packed_cases(np, torch, modis):
+    """(label, cuda (H, W) mask) for the packed kernels' exactness phase:
+    H = 1 to 9 (within and across one packed byte), W = 1, ragged H and W,
+    all-one columns that run across every packed byte, checkerboards,
+    serpentines, uint8/bool/int32/float32, float32 subnormals of both
+    signs, and the 4096^2 snowfield of ``bench_kernel_packed``."""
+    rng = np.random.default_rng(20130615)
+    dev = DEV
+
+    def dtypes(label, a):
+        t = torch.from_numpy(a).to(dev)
+        yield f"{label} uint8", t
+        yield f"{label} bool", t.bool()
+        yield f"{label} int32", t.to(torch.int32)
+        yield f"{label} float32", t.to(torch.float32)
+
+    shapes = [(h, w) for h in range(1, 10) for w in (1, 300)] + [
+        (13, 129), (33, 200), (128, 384), (257, 131), (1000, 513), (64, 1)]
+    cases = []
+    for shape in shapes:
+        cases += dtypes(f"random {shape}", (rng.random(shape) < 0.5).astype(
+            np.uint8))
+    checker = (np.indices((64, 700)).sum(axis=0) % 2).astype(np.uint8)
+    for label, a in [("all-one 100 x 300", np.ones((100, 300), np.uint8)),
+                     ("all-one 17 x 70", np.ones((17, 70), np.uint8)),
+                     ("checkerboard", checker),
+                     ("checkerboard, shifted", 1 - checker),
+                     ("serpentine 301 x 257", serpentine(np, 301, 257)),
+                     ("serpentine 257 x 301, transposed",
+                      np.ascontiguousarray(serpentine(np, 257, 301).T))]:
+        cases += dtypes(label, a)
+    tiny = np.zeros((9, 3), np.float32)
+    tiny[0, 0], tiny[1, 1], tiny[8, 2] = 1e-40, 1.0, -1e-42
+    cases.append(("float32 9 x 3, subnormals of both signs",
+                  torch.from_numpy(tiny).to(dev)))
+    cases.append(("float32 with subnormals", torch.from_numpy(
+        subnormal_values(np, rng, (33, 260))).to(dev)))
+    cases.append((f"snowfield {PACKED_SNOW_RES}^2", torch.from_numpy(
+        modis.snowfield(PACKED_SNOW_RES, seed=2)).to(dev)))
+    return cases
+
+
 def main() -> int:
     import torch
 
@@ -434,6 +547,7 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from repro_torch import obs
     from repro_torch.configs.ychg_modis import config as workload_config
     from repro_torch.core import ychg
     from repro_torch.data import modis
@@ -444,6 +558,7 @@ def main() -> int:
     from repro_torch.kernels import denoise as kdn
     from repro_torch.kernels import ychg_colscan as kc
     from repro_torch.kernels import ychg_fused as kf
+    from repro_torch.kernels import ychg_packed as kp
     from repro_torch.launch.serve import (
         check_metrics_page,
         derived_masks,
@@ -451,6 +566,16 @@ def main() -> int:
         overload_pass,
         pipeline_pass,
         serve_passes,
+    )
+    from repro_torch.scene import (
+        BulkJob,
+        BulkJobConfig,
+        GranuleReader,
+        GranuleSpec,
+        SceneProgress,
+        SceneRunner,
+        read_scene_result,
+        synthetic_manifest,
     )
     from repro_torch.service import ServiceConfig, YCHGService
 
@@ -469,7 +594,7 @@ def main() -> int:
 
     # 2. the build
     t0 = time.perf_counter()
-    sources = ["ychg_fused", "ychg_colscan", "denoise", "ccl"]
+    sources = ["ychg_fused", "ychg_colscan", "denoise", "ccl", "ychg_packed"]
     seconds = _build.build(sources)
     print(f"build: {json.dumps(seconds)} in "
           f"{time.perf_counter() - t0:.1f} s wall", flush=True)
@@ -495,6 +620,8 @@ def main() -> int:
     print(f"host data: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # 3. each kernel against its plain version
+    fields = ("runs", "cut_vertices", "transitions", "births", "deaths",
+              "n_hyperedges", "n_transitions")
     stats = {name: {"cases": 0, "max_abs_err": 0} for name in KERNELS}
     float_outputs = {"outputs": 0, "differing": 0}
 
@@ -548,6 +675,24 @@ def main() -> int:
                                        f"ychg_diff [{label}]"))
         return runs, diff
 
+    def compare_packed(label, img):
+        """Both packed kernels on the packing of one (H, W) mask, against
+        their plain versions and, for the fused one, against the reference
+        on the unpacked mask; returns the fused kernel's fields."""
+        packed = kp.pack_rows(img)
+        tally("ychg_packed_colscan", max_abs_err(
+            {"runs": kp.launch_colscan(packed)},
+            {"runs": kp.packed_colscan_plain(packed)},
+            f"ychg_packed_colscan [{label}]"))
+        got = kp.launch_fused(packed)
+        tally("ychg_packed_fused", max_abs_err(
+            got, kp.packed_fused_plain(packed),
+            f"ychg_packed_fused [{label}]"))
+        ref = ychg.analyze(img)
+        max_abs_err(got, {f: getattr(ref, f) for f in fields},
+                    f"ychg_packed_fused [{label}] vs core.ychg.analyze")
+        return got
+
     for label, x, block_h in kernel_cases(np, torch, modis):
         compare_full(label, x)
         compare_splith(label, x, block_h)
@@ -564,6 +709,9 @@ def main() -> int:
         tally("denoise", float_exact(kdn.launch(x), kdn.denoise_plain(x),
                                      f"denoise [{label}]"))
         compare_ccl(label, x)
+    for label, x in packed_cases(np, torch, modis):
+        compare_packed(label, x)
+    free()
     serve_stack = torch.from_numpy(np.stack(serve_masks[:SERVE_BATCH])).to(DEV)
     float_stack = torch.from_numpy(np.stack(float_masks)).to(DEV)
     scene_stack = torch.from_numpy(scene).to(DEV)[None]
@@ -598,6 +746,10 @@ def main() -> int:
               f"{SCENE_HYPEREDGES}")
     del diff, runs
     sweeps = compare_ccl("21000^2 scene", scene_stack)
+    got = int(compare_packed("21000^2 scene", scene_stack[0])["n_hyperedges"])
+    check(got == SCENE_HYPEREDGES,
+          f"ychg_packed_fused: scene gives {got} hyperedges, want "
+          f"{SCENE_HYPEREDGES}")
     free()
     for name, st in stats.items():
         print(f"exact: {name} equals its plain version on {st['cases']} "
@@ -610,6 +762,7 @@ def main() -> int:
     timings = {}
     lone, scene_img = serve_stack[0], scene_stack[0]
     lone_runs = kc.launch_full(lone)
+    scene_packed, lone_packed = kp.pack_rows(scene_img), kp.pack_rows(lone)
     for name, x, run, plain, bound_fn, plain_samples in [
             ("ychg_fused_full", serve_stack,
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
@@ -651,7 +804,15 @@ def main() -> int:
             ("ccl", serve_stack, kccl.launch, kccl.ccl_fixpoint_plain,
              bound_ccl, 3),
             ("ccl", serve_stack[:1], kccl.launch, kccl.ccl_fixpoint_plain,
-             bound_ccl, 3)]:
+             bound_ccl, 3),
+            ("ychg_packed_colscan", scene_packed, kp.launch_colscan,
+             kp.packed_colscan_plain, bound_packed_colscan, 10),
+            ("ychg_packed_colscan", lone_packed, kp.launch_colscan,
+             kp.packed_colscan_plain, bound_packed_colscan, 10),
+            ("ychg_packed_fused", scene_packed, kp.launch_fused,
+             kp.packed_fused_plain, bound_packed_fused, 10),
+            ("ychg_packed_fused", lone_packed, kp.launch_fused,
+             kp.packed_fused_plain, bound_packed_fused, 10)]:
         b_ms, b_by, b_bytes = bound_fn(x)
         row = {"shape": list(x.shape), "dtype": str(x.dtype).split(".")[-1],
                "ms": time_ms(lambda: run(x)),
@@ -681,6 +842,33 @@ def main() -> int:
                 lambda: lib.ychg_diff(x.data_ptr(), x.shape[0], *ptrs,
                                       stream), reps=50)
             extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
+        if name == "ychg_packed_fused" and x is lone_packed:
+            # the C entry point alone on preallocated outputs (the totals
+            # accumulate over the calls; only the time is read)
+            lib = _build.load("ychg_packed", kp._SIGNATURES)
+            out = kp.launch_fused(x)
+            ptrs = [out[k].data_ptr() for k in kp._FUSED_OUT]
+            stream = torch.cuda.current_stream().cuda_stream
+            row["entry_point_ms"] = time_ms(
+                lambda: lib.ychg_packed_fused(x.data_ptr(), *x.shape, *ptrs,
+                                              stream), reps=50)
+            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
+            del out
+        if name == "ychg_packed_fused" and x is scene_packed:
+            # packed_analyze on the unpacked scene is pack_rows (torch ops)
+            # and then this kernel
+            row["pack_rows_ms"] = time_ms(lambda: kp.pack_rows(scene_img),
+                                          samples=5, reps=1)
+            row["pack_rows_bound_ms"] = bound_pack_rows(scene_img)[0]
+            row["packed_analyze_ms"] = time_ms(
+                lambda: kp.packed_analyze(scene_img), samples=5, reps=1)
+            row["pack_rows_share"] = (row["pack_rows_ms"]
+                                      / row["packed_analyze_ms"])
+            extra = (f"; pack_rows alone {row['pack_rows_ms']:.4f} ms (bound "
+                     f"{row['pack_rows_bound_ms']:.4f} ms), "
+                     f"{100 * row['pack_rows_share']:.1f}% of packed_analyze "
+                     f"{row['packed_analyze_ms']:.4f} ms on the unpacked "
+                     f"scene")
         timings.setdefault(name, []).append(row)
         print(f"time: {name} {row['shape']} {row['dtype']}: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
@@ -689,10 +877,11 @@ def main() -> int:
               flush=True)
         free()
     del serve_stack, float_stack, scene_stack, lone, scene_img, lone_runs
+    del scene_packed, lone_packed
     free()
 
     # 4. the main path, counted from zero
-    for module in (kf, kc, kdn, kccl):
+    for module in (kf, kc, kdn, kccl, kp):
         module.reset_launch_counts()
     registry.reset_call_counts()
     engine = Engine()
@@ -709,8 +898,6 @@ def main() -> int:
     check(kf.LAUNCHES["ychg_fused_full"] > 0,
           "Engine().analyze_batch launched no ychg_fused_full kernel")
     want = torch_engine.analyze_batch(stack)
-    fields = ("runs", "cut_vertices", "transitions", "births", "deaths",
-              "n_hyperedges", "n_transitions")
     max_abs_err({f: getattr(got, f) for f in fields},
                 {f: getattr(want, f) for f in fields},
                 "Engine fused vs torch, 8 x 8192^2")
@@ -858,6 +1045,110 @@ def main() -> int:
           f"version took {sweeps} sweeps on it)", flush=True)
     del r
     free()
+    scene_dev = torch.from_numpy(scene).to(DEV)
+    whole = engine.analyze(scene_dev).to_summary()
+    whole_fields = {f: getattr(whole, f) for f in fields}
+    max_abs_err(kp.packed_analyze(scene_dev), whole_fields,
+                "packed_analyze vs Engine().analyze, scene")
+    max_abs_err({"runs": kp.packed_colscan(kp.pack_rows(scene_dev))},
+                {"runs": whole.runs},
+                "packed_colscan vs Engine().analyze runs, scene")
+    print(f"scene: {SCENE_RES}^2 through packed_analyze and packed_colscan "
+          f"equals Engine().analyze ({int(whole.n_hyperedges)} hyperedges)",
+          flush=True)
+    whole_host = {f: v.cpu().numpy() for f, v in whole_fields.items()}
+    del scene_dev, whole, whole_fields
+    free()
+
+    # the scene tier: the scene as a memmap granule, in full-width strips
+    def host_equal(got, label):
+        for f, w in whole_host.items():
+            g = np.asarray(got[f])
+            check(g.dtype == w.dtype and g.shape == w.shape
+                  and np.array_equal(g, w),
+                  f"{label}: field {f} differs from one whole-scene "
+                  f"Engine().analyze call")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "scene.npy")
+        np.save(path, scene)
+        spec = GranuleSpec(granule_id=f"striped_{SCENE_RES}",
+                           height=SCENE_RES, width=SCENE_RES, kind="memmap",
+                           path=path)
+        progress = SceneProgress()
+        obs.recorder().clear()
+        report = BulkJob(Engine(), [spec], BulkJobConfig(
+            out_dir=os.path.join(tmp, "out"),
+            ckpt_dir=os.path.join(tmp, "ckpt"), tile_h=BULK_TILE_H,
+            stack_tiles=BULK_STACK), progress=progress).run()
+        check(report.completed and len(report.written) == 1,
+              f"scene bulk job ended {report.status}")
+        result = read_scene_result(report.written[0])
+        host_equal(result.to_host(), "scene bulk job")
+        snap = progress.snapshot()
+        print(f"scene tier: BulkJob on the {SCENE_RES}^2 memmap granule "
+              f"({report.tiles_done} strips of {BULK_TILE_H} rows in "
+              f"{report.stacks_done} device batches of up to {BULK_STACK}) "
+              f"is bit-identical to one whole-scene call "
+              f"({int(result.n_hyperedges)} hyperedges): "
+              f"{report.elapsed_s:.3f} s, "
+              f"{SCENE_RES ** 2 / report.elapsed_s / 1e6:.1f} Mpx/s, stitch "
+              f"{snap.stitch_time_s:.4f} s; on {card}", flush=True)
+        print("scene tier: BulkJob by span (s): "
+              + json.dumps(scene_span_seconds()), flush=True)
+        reader = GranuleReader.open(spec, BULK_TILE_H)
+        obs.recorder().clear()
+        t0 = time.perf_counter()
+        streamed = SceneRunner(Engine(), stack_tiles=BULK_STACK).analyze_scene(
+            reader)
+        t_stream = time.perf_counter() - t0
+        host_equal(streamed.to_host(), "SceneRunner.analyze_scene")
+        print(f"scene tier: SceneRunner.analyze_scene (analyze_stream) on the "
+              f"same granule is bit-identical too: {t_stream:.3f} s, "
+              f"{SCENE_RES ** 2 / t_stream / 1e6:.1f} Mpx/s; on {card}",
+              flush=True)
+        print("scene tier: SceneRunner by span (s): "
+              + json.dumps(scene_span_seconds()), flush=True)
+        del result, streamed
+    del whole_host
+    free()
+
+    manifest = synthetic_manifest(2, RESUME_H, RESUME_W, seed=11)
+    with tempfile.TemporaryDirectory() as tmp:
+        def job(tag, progress=None):
+            return BulkJob(Engine(), manifest, BulkJobConfig(
+                out_dir=os.path.join(tmp, tag, "out"),
+                ckpt_dir=os.path.join(tmp, tag, "ckpt"),
+                tile_h=RESUME_TILE_H, stack_tiles=2, checkpoint_every=1),
+                progress=progress)
+
+        straight = job("straight").run()
+        check(straight.completed, "straight bulk job did not complete")
+        first = job("killed").run(max_stacks=3)
+        check(not first.completed, "max_stacks=3 did not interrupt the job")
+        newest = sorted(glob.glob(os.path.join(tmp, "killed", "ckpt",
+                                               "step_*")))[-1]
+        with open(glob.glob(os.path.join(newest, "*.npz"))[0], "r+b") as f:
+            f.truncate(8)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            second = job("killed", SceneProgress()).run()
+        check(any(issubclass(c.category, RuntimeWarning) for c in caught),
+              "the truncated checkpoint resumed without a RuntimeWarning")
+        check(second.completed and second.resumes == 1,
+              f"resumed job ended {second.status} with {second.resumes} "
+              f"resumes")
+        for g in manifest:
+            a, b = (os.path.join(tmp, tag, "out", f"{g.granule_id}.ychg")
+                    for tag in ("straight", "killed"))
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                check(fa.read() == fb.read(),
+                      f"{g.granule_id}: killed and resumed output differs "
+                      f"from the straight run's")
+    print(f"scene tier: {len(manifest)} synthetic {RESUME_H} x {RESUME_W} "
+          f"granules killed at stack 3, newest checkpoint truncated, resumed "
+          f"with a warning ({second.stacks_done} stacks redone) to "
+          f"byte-identical .ychg files", flush=True)
 
     # the front end over loopback, on the two-kernel engine, at the largest
     # masks its 64 MiB body limit carries (an 8192^2 uint8 mask is 89 MB
@@ -925,7 +1216,8 @@ def main() -> int:
           f"Retry-After {retry:.3f} s; on {card}", flush=True)
     free()
 
-    launches = {**kf.LAUNCHES, **kc.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES}
+    launches = {**kf.LAUNCHES, **kc.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES,
+                **kp.LAUNCHES}
     for name in KERNELS:
         check(launches[name] > 0, f"the main path launched {name} no time")
     calls = {op: {b: registry.call_count(b, op) for b in

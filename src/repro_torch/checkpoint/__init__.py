@@ -1,0 +1,5 @@
+"""Fault-tolerant checkpointing (the port's copy of ``repro.checkpoint``)."""
+
+from repro_torch.checkpoint.checkpointer import Checkpointer
+
+__all__ = ["Checkpointer"]

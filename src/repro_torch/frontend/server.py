@@ -3,8 +3,7 @@
 The port's counterpart of ``repro.frontend.server``, over
 ``repro_torch.service``. The port has no fleet yet: its cache has no
 ``set_peers``, so that RPC verb answers ``ok: false`` (the reference's
-answer for a cache that cannot peer), and no scene job publishes progress,
-so the scene gauges render as zero.
+answer for a cache that cannot peer).
 
 `FrontendServer` puts a network edge on
 :class:`repro_torch.service.YCHGService`
@@ -498,8 +497,8 @@ class FrontendServer:
         b.gauge("ychg_backend_info", 1,
                 "resolved engine backend as a label",
                 labels=(("backend", m.backend),))
-        # scene/bulk workload progress: the port has no scene job yet,
-        # so these render as zero
+        # scene/bulk workload progress (repro_torch.scene), attached via
+        # service.attach_scene_progress(); all zero when none is running
         b.gauge("ychg_scene_tiles_done", m.scene_tiles_done,
                 "scene tiles stitched so far")
         b.gauge("ychg_scene_tiles_total", m.scene_tiles_total,

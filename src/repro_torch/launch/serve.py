@@ -16,13 +16,20 @@ Usage:
       --connect http://127.0.0.1:8788         # drive a running server
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --frontend-smoke --device cpu   # end-to-end assert
+  # granule-scale bulk analysis (repro_torch.scene):
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg scene \\
+      --granules 4 --scene-height 4096 --scene-width 2048 \\
+      --out scene_out --ckpt scene_ckpt       # SIGTERM -> checkpoint; rerun resumes
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --res 64 --batch 4 --scene-smoke --device cpu      # scene end-to-end assert
 
 The counterpart of ``repro.launch.serve``'s in-process ``ychg`` pass
-(``serve_ychg``), with its ``--op`` and ``--overload`` legs, and of its
-``--listen``, ``--connect`` and ``--frontend-smoke`` network modes;
-:func:`pipeline_pass` serves masks through an op chain. Every mode runs
-the engine on the card unless ``--device cpu`` is given. The fleet, scene
-and LM modes come in later slices.
+(``serve_ychg``), with its ``--op`` and ``--overload`` legs, of its
+``--listen``, ``--connect`` and ``--frontend-smoke`` network modes, and of
+its ``scene`` subcommand and ``--scene-smoke``; :func:`pipeline_pass`
+serves masks through an op chain. Every mode runs the engine on the card
+unless ``--device cpu`` is given. The fleet, SLO and LM modes come in later
+slices.
 """
 
 from __future__ import annotations
@@ -486,8 +493,223 @@ def frontend_smoke(args) -> None:
           "per-bucket shed counter moved", flush=True)
 
 
+def _scene_manifest(args):
+    from repro_torch.scene import manifest_from_json, synthetic_manifest
+
+    if args.manifest:
+        with open(args.manifest) as f:
+            return manifest_from_json(f.read())
+    return synthetic_manifest(args.granules, args.scene_height,
+                              args.scene_width, seed=args.seed)
+
+
+def scene_run(args) -> None:
+    """``serve.py ... scene``: run a granule manifest as a resumable bulk
+    job. SIGTERM/SIGINT checkpoint the current tile row and exit cleanly;
+    rerunning the same command resumes from the last checkpoint and the
+    output files come out byte-identical to an uninterrupted run."""
+    import signal
+
+    from repro_torch.engine import Engine
+    from repro_torch.scene import BulkJob, BulkJobConfig, SceneProgress
+
+    manifest = _scene_manifest(args)
+    cfg = BulkJobConfig(out_dir=args.out, ckpt_dir=args.ckpt,
+                        tile_h=args.tile_h, stack_tiles=args.stack,
+                        checkpoint_every=args.checkpoint_every)
+    progress = SceneProgress()
+    engine = Engine(device=args.device)
+    job = BulkJob(engine, manifest, cfg, progress=progress)
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, lambda *_: stop.set())
+
+    px = sum(s.pixels for s in manifest)
+    print(f"bulk job on {engine.device}: {len(manifest)} granules "
+          f"({px / 1e6:.1f} Mpx total), tile_h {cfg.tile_h}, "
+          f"stacks of {cfg.stack_tiles}, checkpoint every "
+          f"{cfg.checkpoint_every} stacks -> {args.ckpt}", flush=True)
+    report = job.run(max_stacks=args.max_stacks, should_stop=stop.is_set)
+    snap = progress.snapshot()
+    done_px = report.tiles_done * cfg.tile_h * manifest[0].width
+    rate = (done_px / report.elapsed_s / 1e6
+            if report.elapsed_s > 0 else 0.0)
+    print(f"bulk job {report.status}: {report.granules_done} granules, "
+          f"{report.tiles_done} tiles in {report.elapsed_s:.2f}s "
+          f"({rate:.0f} Mpx/s); tiles {snap.tiles_done}/{snap.tiles_total}, "
+          f"resumes {report.resumes}, "
+          f"stitch {snap.stitch_time_s * 1e3:.1f}ms", flush=True)
+    for path in report.written:
+        print(f"  wrote {path}", flush=True)
+    dump = obs.auto_dump("scene-run-end")
+    if dump:
+        print(f"flight recorder dumped to {dump}", flush=True)
+    if not report.completed:
+        print("interrupted — rerun the same command to resume from the "
+              "checkpoint", flush=True)
+
+
+def _host_identical(got: dict, want: dict) -> bool:
+    """Every field of two host result dicts equal in value, dtype, shape."""
+    return set(got) == set(want) and all(
+        np.array_equal(np.asarray(got[f]), np.asarray(want[f]))
+        and np.asarray(got[f]).dtype == np.asarray(want[f]).dtype
+        and np.asarray(got[f]).shape == np.asarray(want[f]).shape
+        for f in want)
+
+
+def scene_smoke(args) -> None:
+    """End-to-end assert for the scene tier (repro_torch.scene):
+
+      1. **stitch bit-identity** — streaming a synthetic granule through
+         ``SceneRunner`` (ragged last strip included) produces all seven
+         result fields BIT-IDENTICAL (values, dtypes, shapes) to one
+         whole-scene ``engine.analyze`` call;
+      2. **kill -> resume byte-identity** — a ``BulkJob`` stopped
+         mid-granule (with its newest checkpoint then truncated, so the
+         Checkpointer must fall back to the previous valid one) resumes
+         and writes result files byte-identical to an uninterrupted run;
+      3. **online/offline agreement** — the same tiles replayed through
+         the HTTP front end's NDJSON batch endpoint match per-tile
+         ``engine.analyze`` bit for bit, ``stitch_tile_runs`` over the
+         wire results equals the offline scene runs, and the attached
+         ``SceneProgress`` surfaces in ``/metrics``.
+
+    Exits nonzero on any failure.
+    """
+    import glob
+    import os
+    import tempfile
+    import warnings
+
+    from repro_torch.data import scenes
+    from repro_torch.engine import Engine
+    from repro_torch.frontend import ServerThread, YCHGClient
+    from repro_torch.scene import (
+        BulkJob,
+        BulkJobConfig,
+        GranuleReader,
+        SceneProgress,
+        SceneRunner,
+        read_scene_result,
+        stitch_tile_runs,
+        synthetic_manifest,
+    )
+    from repro_torch.service import ServiceConfig, YCHGService
+
+    engine = Engine(device=args.device)
+
+    # leg 1: stitch bit-identity, ragged last strip (45 = 3*16 - 3)
+    h, w, tile_h = 45, args.res, 16
+    mask = scenes.scene(h, w, seed=7, cell=8)
+    reader = GranuleReader.from_array(mask, tile_h, granule_id="smoke")
+    got = SceneRunner(engine, stack_tiles=2).analyze_scene(reader).to_host()
+    if not _host_identical(got, engine.analyze(mask).to_host()):
+        raise SystemExit("scene smoke [stitch]: the stitched result is not "
+                         "bit-identical to the whole-scene analysis")
+    print(f"scene smoke: {reader.n_tiles} stitched strips of a {h}x{w} "
+          f"scene bit-identical to one whole-scene call on {engine.device}",
+          flush=True)
+
+    # leg 2: kill -> resume byte-identity through a corrupted checkpoint
+    manifest = synthetic_manifest(2, 40, args.res, seed=3, cell=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        def job(tag, progress=None):
+            return BulkJob(engine, manifest, BulkJobConfig(
+                out_dir=os.path.join(tmp, tag, "out"),
+                ckpt_dir=os.path.join(tmp, tag, "ckpt"),
+                tile_h=8, stack_tiles=1, checkpoint_every=1),
+                progress=progress)
+
+        straight = job("straight").run()
+        if not straight.completed:
+            raise SystemExit("scene smoke [resume]: uninterrupted run did "
+                             "not complete")
+        first = job("killed").run(max_stacks=3)
+        if first.completed:
+            raise SystemExit("scene smoke [resume]: max_stacks=3 should "
+                             "have interrupted the job mid-granule")
+        # hard-kill flavour: truncate the newest checkpoint's shard so the
+        # resume must warn and fall back to the previous valid step
+        steps = sorted(glob.glob(os.path.join(tmp, "killed", "ckpt",
+                                              "step_*")))
+        shard = glob.glob(os.path.join(steps[-1], "*.npz"))[0]
+        with open(shard, "r+b") as f:
+            f.truncate(8)
+        progress = SceneProgress()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            second = job("killed", progress).run()
+        if not any(issubclass(c.category, RuntimeWarning) for c in caught):
+            raise SystemExit("scene smoke [resume]: truncated checkpoint "
+                             "resumed without a RuntimeWarning fallback")
+        if not second.completed or second.resumes < 1:
+            raise SystemExit(f"scene smoke [resume]: resumed run ended "
+                             f"{second.status} with {second.resumes} resumes")
+        for spec in manifest:
+            a = os.path.join(tmp, "straight", "out",
+                             f"{spec.granule_id}.ychg")
+            b = os.path.join(tmp, "killed", "out", f"{spec.granule_id}.ychg")
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise SystemExit(
+                        f"scene smoke [resume]: {spec.granule_id} output "
+                        f"differs between straight and killed+resumed runs")
+        offline = read_scene_result(os.path.join(
+            tmp, "straight", "out", f"{manifest[0].granule_id}.ychg"))
+        snap = progress.snapshot()
+        print(f"scene smoke: kill at stack 3 + corrupt newest checkpoint, "
+              f"resume wrote byte-identical outputs "
+              f"(resumes {second.resumes}, tiles "
+              f"{snap.tiles_done}/{snap.tiles_total})", flush=True)
+
+        # leg 3: online/offline agreement over loopback NDJSON. Buckets are
+        # square on max(h, w), so (tile_h, W) strips land in the W bucket.
+        spec = manifest[0]
+        reader = GranuleReader.open(spec, 8)
+        tiles = [reader.read_tile(t) for t in range(reader.n_tiles)]
+        svc_cfg = ServiceConfig(bucket_sides=(spec.width,),
+                                max_batch=args.batch)
+        with YCHGService(engine, svc_cfg) as svc, \
+                ServerThread(svc) as srv, \
+                YCHGClient("127.0.0.1", srv.port) as client:
+            svc.attach_scene_progress(progress)
+            items = {it.id: it for it in client.analyze_batch(tiles)}
+            tile_runs = []
+            for i, tile in enumerate(tiles):
+                item = items.get(i)
+                if item is None or not item.ok:
+                    raise SystemExit(
+                        f"scene smoke [online]: tile {i} failed over the "
+                        f"wire: {item and item.error}")
+                if not _host_identical(item.result,
+                                       engine.analyze(tile).to_host()):
+                    raise SystemExit(f"scene smoke [online]: tile {i} not "
+                                     f"bit-identical over the wire")
+                tile_runs.append(item.result["runs"])
+            online_runs = stitch_tile_runs(tile_runs, tiles)
+            if not np.array_equal(online_runs, offline.runs):
+                raise SystemExit(
+                    "scene smoke [online]: stitching the wire-served tile "
+                    "runs does not match the offline scene result")
+            metrics = client.metrics_text()
+        want = {"ychg_scene_tiles_done": snap.tiles_done,
+                "ychg_scene_resumes_total": snap.resumes}
+        for name, value in want.items():
+            if f"{name} {value}" not in metrics:
+                raise SystemExit(f"scene smoke [online]: '{name} {value}' "
+                                 f"missing from /metrics with a scene "
+                                 f"progress attached")
+        print(f"scene smoke: {len(tiles)} tiles over loopback NDJSON "
+              f"bit-identical per tile, online stitch == offline scene "
+              f"result, scene gauges on /metrics", flush=True)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("command", nargs="?", choices=["scene"],
+                    help="optional subcommand: 'scene' runs a resumable "
+                         "granule bulk job (repro_torch.scene)")
     ap.add_argument("--workload", default="ychg", choices=["ychg"])
     ap.add_argument("--op", default="ychg", choices=["ychg", "ccl", "denoise"],
                     help="the operator the service runs on every mask")
@@ -515,8 +737,37 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--bucket-queue-depth", type=int, default=None)
     ap.add_argument("--policy", default="block", choices=["block", "shed"],
                     help="overload policy for --listen/--frontend-smoke")
+    ap.add_argument("--scene-smoke", action="store_true",
+                    help="scene tier end-to-end assert (stitch identity, "
+                         "kill/resume byte identity, online/offline)")
+    scn = ap.add_argument_group("scene", "knobs for the 'scene' subcommand")
+    scn.add_argument("--scene-height", type=int, default=2048)
+    scn.add_argument("--scene-width", type=int, default=1024)
+    scn.add_argument("--granules", type=int, default=2,
+                     help="synthetic granules (ignored with --manifest)")
+    scn.add_argument("--seed", type=int, default=0,
+                     help="content seed of the first synthetic granule")
+    scn.add_argument("--manifest", default=None, metavar="JSON",
+                     help="granule manifest file (repro_torch.scene "
+                          "manifest_to_json format)")
+    scn.add_argument("--tile-h", type=int, default=256,
+                     help="strip height the scene is windowed into")
+    scn.add_argument("--stack", type=int, default=4,
+                     help="strips per device call")
+    scn.add_argument("--out", default="scene_out",
+                     help="directory for the .ychg result files")
+    scn.add_argument("--ckpt", default="scene_ckpt",
+                     help="checkpoint directory (resume point)")
+    scn.add_argument("--checkpoint-every", type=int, default=4,
+                     help="stacks between mid-granule checkpoints")
+    scn.add_argument("--max-stacks", type=int, default=None,
+                     help="stop (with a checkpoint) after N stacks")
     args = ap.parse_args(argv)
-    if args.frontend_smoke:
+    if args.command == "scene":
+        scene_run(args)
+    elif args.scene_smoke:
+        scene_smoke(args)
+    elif args.frontend_smoke:
         frontend_smoke(args)
     elif args.listen:
         serve_listen(args)

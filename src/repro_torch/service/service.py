@@ -269,6 +269,7 @@ class YCHGService:
         self._leaders: Dict[CacheKey, _Request] = {}
         self._lock = threading.Lock()
         self._closed = False
+        self._scene_progress: Optional[Any] = None
         self._scheduler = Scheduler(
             config.scheduler_config(),
             dispatch=self._dispatch,
@@ -451,7 +452,20 @@ class YCHGService:
         """Blocking convenience: ``submit_pipeline(...).result(timeout)``."""
         return self.submit_pipeline(mask, stages).result(timeout)
 
+    def attach_scene_progress(self, progress: Any) -> None:
+        """Publish a scene/bulk job's progress through ``metrics()``.
+
+        ``progress`` is duck-typed (so this layer never imports
+        ``repro_torch.scene``): anything whose ``snapshot()`` exposes
+        ``tiles_done`` / ``tiles_total`` / ``resumes`` / ``stitch_time_s``
+        — in practice a :class:`repro_torch.scene.SceneProgress`. Pass
+        ``None`` to detach.
+        """
+        self._scene_progress = progress
+
     def metrics(self) -> ServiceMetrics:
+        scene = (self._scene_progress.snapshot()
+                 if self._scene_progress is not None else None)
         return self._recorder.snapshot(
             queue_depth=self._scheduler.backlog(),
             cache_hits=self.cache.hits,
@@ -467,6 +481,10 @@ class YCHGService:
             shed_deadline=self._scheduler.shed_deadline,
             shed_quota=self._scheduler.shed_quota,
             backend=self.engine.resolve_backend(),
+            scene_tiles_done=scene.tiles_done if scene else 0,
+            scene_tiles_total=scene.tiles_total if scene else 0,
+            scene_resumes=scene.resumes if scene else 0,
+            scene_stitch_time_s=scene.stitch_time_s if scene else 0.0,
         )
 
     # ----------------------------------------------------------- lifecycle

@@ -6,7 +6,7 @@ kernel modules: the card's probes answer as if one card were present, every
 ``launch`` runs its plain version and counts itself, the kernel wrappers
 route through those launches, and ``Engine()`` lands on the CPU while
 resolving backends as it would on the card. It shows that every phase runs
-and that the main path reaches all seven kernels; it says nothing about the
+and that the main path reaches all nine kernels; it says nothing about the
 kernels themselves, which only a run on the card can check.
 """
 
@@ -51,11 +51,15 @@ REHEARSAL = textwrap.dedent("""
     from repro_torch.engine import engine as em
     from repro_torch.kernels import _build, ccl, denoise, ychg_fused as kf
     from repro_torch.kernels import ychg_colscan as kc
+    from repro_torch.kernels import ychg_packed as kp
 
     cs.DEV = "cpu"
     cs.SERVE_RES, cs.SCENE_RES = 64, 120
     cs.SCENE_HYPEREDGES, cs.SCENE_BLOCK_H = 50, 16
     cs.FRONTEND_RES, cs.FRONTEND_BIG_RES = 32, 64
+    cs.PACKED_SNOW_RES = 64
+    cs.BULK_TILE_H, cs.BULK_STACK = 32, 2
+    cs.RESUME_H, cs.RESUME_W, cs.RESUME_TILE_H = 64, 96, 16
     cs.card_line = lambda: "CPU rehearsal, 0 W"
     cs.ptx_float_ops = lambda source: {"add.rn.ftz.f32": 1}
     _build.build = lambda names: {n: 0.0 for n in names}
@@ -96,6 +100,12 @@ REHEARSAL = textwrap.dedent("""
         denoise.launch(s))
     ccl.launch = counted(ccl.LAUNCHES, "ccl", ccl.ccl_fixpoint_plain)
     ccl.ccl_fixpoint = lambda s: ccl.launch(s)
+    kp.launch_colscan = counted(kp.LAUNCHES, "ychg_packed_colscan",
+                                kp.packed_colscan_plain)
+    kp.launch_fused = counted(kp.LAUNCHES, "ychg_packed_fused",
+                              kp.packed_fused_plain)
+    kp.ychg_packed_colscan = lambda p: kp.launch_colscan(p)
+    kp.ychg_packed_fused = lambda p: kp.launch_fused(p)
 
     em._default_device = lambda: torch.device("cpu")
     init = em.Engine.__init__
@@ -122,7 +132,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     kernels = json.loads(lines[-3])["kernels"]
     assert [k["name"] for k in kernels] == [
         "ychg_fused_full", "ychg_fused_splith", "ychg_colscan_full",
-        "ychg_colscan_splith", "ychg_diff", "denoise", "ccl"]
+        "ychg_colscan_splith", "ychg_diff", "denoise", "ccl",
+        "ychg_packed_colscan", "ychg_packed_fused"]
     for k in kernels:
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k["name"]
         assert k["library_ms"] is None and k["bound_by"] == "bytes"
@@ -133,3 +144,11 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert "frontend: loopback HTTP over the cuda engine" in out.stdout
     assert "paper: 120^2 (striped scene): serial" in out.stdout
     assert "engine: one analyze_batch of the 8 x 64^2 serving" in out.stdout
+    assert ("scene: 120^2 through packed_analyze and packed_colscan equals "
+            "Engine().analyze (50 hyperedges)") in out.stdout
+    assert ("BulkJob on the 120^2 memmap granule (4 strips of 32 rows in 2 "
+            "device batches of up to 2) is bit-identical") in out.stdout
+    assert "SceneRunner.analyze_scene (analyze_stream)" in out.stdout
+    assert ("2 synthetic 64 x 96 granules killed at stack 3, newest "
+            "checkpoint truncated, resumed with a warning") in out.stdout
+    assert "% of packed_analyze" in out.stdout

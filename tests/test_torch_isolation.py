@@ -26,7 +26,13 @@ def test_port_imports_no_jax_and_no_repro():
             importlib.import_module(name)
         assert {"repro_torch.frontend.server", "repro_torch.frontend.client",
                 "repro_torch.kernels.ychg_colscan",
-                "repro_torch.core.serial"} <= set(names), names
+                "repro_torch.core.serial",
+                "repro_torch.kernels.ychg_packed",
+                "repro_torch.data.scenes",
+                "repro_torch.checkpoint.checkpointer",
+                "repro_torch.scene.granule", "repro_torch.scene.result",
+                "repro_torch.scene.runner",
+                "repro_torch.scene.bulk"} <= set(names), names
         sys.path.insert(0, sys.argv[1])
         import chip_smoke  # its main() runs only as a script
 
@@ -40,7 +46,7 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 37  # every module was imported
+    assert int(out.stdout.strip()) >= 46  # every module was imported
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
