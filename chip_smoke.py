@@ -16,14 +16,20 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      printed): ragged widths, H = 1, W = 1, constant, checkerboard and
      serpentine masks, B = 1 and 8, uint8/bool/int32/float32 and the cast
      path, -0.0, NaN and inf, float32 subnormals of both signs (bit for
-     bit for all seven kernels, denoise included), split-H with H not a
-     multiple of block_h, the serving batches (the two-kernel path one
-     mask at a time) and the paper's largest scene (21000^2, 4,124,319
-     hyperedges) through the fused and the two step-1 kernels; then each
-     kernel is timed at its main shapes, the lone 1 x 8192^2 mask the
-     service flushes among them (CUDA events, median of 15 samples of 5
-     back-to-back calls, after a warm-up), beside its plain version, its
-     bound and, for ccl, the canonical re-ranking alone. The two packed
+     bit for all seven kernels, denoise included), the tile and strip
+     boundaries of ccl (32 x 128 tiles) and denoise (4-column vectors,
+     512-column strips of 32 rows) one pixel either side, views whose
+     base is misaligned for vector loads, and for ccl alone the
+     one-pixel-wide serpentine, all foreground and a checkerboard at
+     1 x 8192^2; split-H with H not a multiple of block_h, the serving
+     batches (the two-kernel path one mask at a time) and the paper's
+     largest scene (21000^2, 4,124,319 hyperedges) through the fused and
+     the two step-1 kernels; then each kernel is timed at its main
+     shapes, the lone 1 x 8192^2 mask the service flushes among them
+     (CUDA events, median of 15 samples of 5 back-to-back calls, after a
+     warm-up), beside its plain version, its bound and, for ccl, the
+     canonical re-ranking alone and its three passes apart (local, seams,
+     final). The two packed
      kernels are held to their plain versions on the packed form of H = 1
      to 9, W = 1 and ragged masks, all-one columns, checkerboards,
      serpentines, four dtypes, float32 subnormals, the 4096^2 snowfield of
@@ -413,10 +419,30 @@ def image_cases(np, torch):
         yield f"{label} float32", t.to(torch.float32), True
 
     cases = []
+    # ccl's tile is 32 x 128 (csrc/ccl.cu): one pixel either side of it
+    # and of two tiles; a thread of denoise owns 4 columns, a warp 128, a
+    # block 512 walking 32 rows (csrc/denoise.cu): widths 4 +- 1 and 512
+    # +- 1, heights 32 +- 1
     for shape in [(1, 37, 300), (8, 37, 300), (2, 20, 255), (3, 1, 517),
-                  (4, 200, 1), (1, 1, 1), (2, 33, 64)]:
+                  (4, 200, 1), (1, 1, 1), (2, 33, 64), (2, 31, 127),
+                  (2, 33, 129), (1, 32, 128), (2, 65, 257), (2, 63, 255),
+                  (2, 31, 3), (2, 33, 5), (1, 32, 4), (1, 31, 511),
+                  (1, 33, 513), (1, 40, 512), (2, 65, 1024)]:
         a = (rng.random(shape) < 0.5) * rng.integers(1, 256, shape)
         cases += dtypes(f"random {shape}", a.astype(np.uint8))
+    # vector loads need an aligned base: views that start one element into
+    # their storage, with odd H x W (big[1:]) and with W a multiple of 4
+    for dtype in (torch.uint8, torch.int32, torch.float32):
+        a = (rng.random((3, 37, 301)) < 0.5) * rng.integers(1, 256,
+                                                           (3, 37, 301))
+        big = torch.from_numpy(a.astype(np.uint8)).to(dev).to(dtype)
+        flat = torch.from_numpy(rng.integers(0, 3, 2 * 40 * 256 + 1).astype(
+            np.uint8)).to(dev).to(dtype)
+        name = str(dtype).split(".")[-1]
+        cases.append((f"misaligned base big[1:] (2, 37, 301) {name}",
+                      big[1:], dtype == torch.float32))
+        cases.append((f"misaligned base (2, 40, 256) {name}",
+                      flat[1:].view(2, 40, 256), dtype == torch.float32))
     checker = (np.indices((64, 700)).sum(axis=0) % 2).astype(np.uint8)
     for label, a in [
             ("all-zero", np.zeros((2, 64, 700), np.uint8)),
@@ -438,6 +464,18 @@ def image_cases(np, torch):
     cases.append(("float16 (cast path)",
                   torch.from_numpy(levels.astype(np.float16)).to(dev), True))
     return cases
+
+
+def ccl_big_cases(np, torch):
+    """(label, cuda stack) at the serving width for ccl alone: the
+    one-pixel-wide serpentine (the longest seam chains: one component
+    through every tile row), all foreground (one root, every seam on it)
+    and a checkerboard (nothing links; every pixel its own root)."""
+    n = SERVE_RES
+    i = np.arange(n, dtype=np.uint8)
+    return [(f"serpentine 1 x {n}^2", serpentine(np, n, n)[None]),
+            (f"all-foreground 1 x {n}^2", np.ones((1, n, n), np.uint8)),
+            (f"checkerboard 1 x {n}^2", ((i[:, None] ^ i) & 1)[None])]
 
 
 def subnormal_image_cases(np, torch):
@@ -709,6 +747,11 @@ def main() -> int:
         tally("denoise", float_exact(kdn.launch(x), kdn.denoise_plain(x),
                                      f"denoise [{label}]"))
         compare_ccl(label, x)
+    for label, a in ccl_big_cases(np, torch):
+        sweeps = compare_ccl(label, torch.from_numpy(a).to(DEV))
+        print(f"exact: ccl [{label}] (the plain version took {sweeps} "
+              f"sweeps)", flush=True)
+        free()
     for label, x in packed_cases(np, torch, modis):
         compare_packed(label, x)
     free()
@@ -758,6 +801,27 @@ def main() -> int:
           f"{float_outputs['differing']} of {float_outputs['outputs']} "
           f"outputs (bound: 1 ulp, 1 in 10^4); max abs err "
           f"{stats['denoise']['max_abs_err']}", flush=True)
+
+    def ccl_passes_ms(x) -> dict:
+        """ccl's three passes on ``x``, from its C entry points on one
+        labels buffer. The seams and the final pass change the buffer the
+        next call starts from, so each is timed as the difference between
+        runs that start with the local pass: local, local + seams, all."""
+        lib = _build.load("ccl", kccl._SIGNATURES)
+        out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        args = (x.data_ptr(), kccl._KERNEL_DTYPES[x.dtype], *x.shape,
+                out.data_ptr(), stream)
+
+        def local_and_seams():
+            lib.ccl_local(*args)
+            lib.ccl_seams(*x.shape, out.data_ptr(), stream)
+
+        t_local = time_ms(lambda: lib.ccl_local(*args))
+        t_seams = time_ms(local_and_seams)
+        t_all = time_ms(lambda: lib.ccl(*args))
+        return {"local": t_local, "seams": t_seams - t_local,
+                "final": t_all - t_seams, "all": t_all}
 
     timings = {}
     lone, scene_img = serve_stack[0], scene_stack[0]
@@ -829,9 +893,18 @@ def main() -> int:
                 lambda: kccl._canonicalize(raw, fg), samples=5, reps=1)
             row["op_ms"] = time_ms(lambda: kccl.labels_kernel(x), samples=5,
                                    reps=1)
+            row["canonicalize_share"] = row["canonicalize_ms"] / row["op_ms"]
             del fg, raw
             extra = (f"; canonicalize {row['canonicalize_ms']:.4f} ms, "
-                     f"whole op {row['op_ms']:.4f} ms")
+                     f"{100 * row['canonicalize_share']:.1f}% of the whole "
+                     f"op {row['op_ms']:.4f} ms")
+            row["passes_ms"] = ccl_passes_ms(x)
+            print(f"time: ccl passes {row['shape']} {row['dtype']}: "
+                  + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                              row["passes_ms"].items())
+                  + " (C entry points; seams and final by difference of "
+                  f"local, local + seams and all three) on {card}",
+                  flush=True)
         if name == "ychg_diff":
             # the C entry point alone on preallocated outputs: the wrapper's
             # checks and three allocations taken away

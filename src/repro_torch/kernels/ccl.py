@@ -16,16 +16,19 @@ labels invariant under the service's pad-to-bucket batching.
                           (:func:`fixpoint_with_sweeps` says why not the
                           reference's fixed two jumps a sweep);
   ``labels``              the reference: that fixpoint, canonicalized;
-  ``ccl_fixpoint``        the wrapper: ``csrc/ccl.cu`` (union-find in
-                          device memory; the source states its design) on a
-                          CUDA tensor, the plain version on a CPU tensor;
+  ``ccl_fixpoint``        the wrapper: ``csrc/ccl.cu`` (union-find in a
+                          shared-memory tile, then the tile seams in device
+                          memory; the source states its design) on a CUDA
+                          tensor, the plain version on a CPU tensor;
   ``labels_kernel``       ``_canonicalize(ccl_fixpoint(stack),
                           foreground(stack))``.
 
 ``_canonicalize`` is a plain helper outside the TPU kernel in the
 reference too, and stays torch ops here. ``LAUNCHES["ccl"]`` counts kernel
-launches (one counted launch is the kernel's init, merge and flatten
-passes).
+launches: one counted launch is one call of the C entry point ``ccl``,
+which runs the kernel's three passes (local, seams, final); the C entry
+points ``ccl_local``, ``ccl_seams`` and ``ccl_final`` run one pass each
+and are there to time the passes apart.
 """
 
 from __future__ import annotations
@@ -56,9 +59,13 @@ LAUNCHES: Dict[str, int] = {"ccl": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
+# img, dtype, B, H, W, labels, stream
+_PASS = (_P, ctypes.c_int, _I, _I, _I, _P, _P)
 _SIGNATURES = {
-    # img, dtype, B, H, W, labels, stream
-    "ccl": (_P, ctypes.c_int, _I, _I, _I, _P, _P),
+    "ccl": _PASS,
+    "ccl_local": _PASS,
+    "ccl_seams": (_I, _I, _I, _P, _P),  # B, H, W, labels, stream
+    "ccl_final": _PASS,
 }
 
 
@@ -201,8 +208,20 @@ def labels_kernel(stack: Tensor) -> CCLSummary:
     return _canonicalize(ccl_fixpoint(stack), foreground(stack))
 
 
+def check_shape(b: int, h: int, w: int) -> None:
+    """Raises for a (b, h, w) stack the kernel cannot take: its tiles run
+    along the grid's x dimension and its images along y (at most 65535),
+    and one image's labels must stay below the sentinel."""
+    if b > _MAX_GRID_YZ:
+        raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a launch")
+    if h * w >= _INF:
+        raise ValueError(f"an image of {h * w} pixels reaches the label "
+                         f"sentinel {_INF}")
+
+
 def launch(stack: Tensor) -> Tensor:
-    """The ``ccl`` CUDA kernel on a CUDA (B, H, W) stack: the raw fixpoint."""
+    """The ``ccl`` CUDA kernel on a CUDA (B, H, W) stack: the raw fixpoint,
+    in one call of the C entry point (three passes, one counted launch)."""
     if not stack.is_cuda:
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got one on "
                          f"{stack.device}")
@@ -211,11 +230,7 @@ def launch(stack: Tensor) -> Tensor:
     if code is None:  # one device pass to a 0/1 byte mask
         x, code = foreground(x), 0
     b, h, w = x.shape
-    if b > _MAX_GRID_YZ:
-        raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a launch")
-    if h * w >= _INF:
-        raise ValueError(f"an image of {h * w} pixels reaches the label "
-                         f"sentinel {_INF}")
+    check_shape(b, h, w)
     out = torch.empty((b, h, w), dtype=torch.int32, device=x.device)
     if out.numel() == 0:  # nothing to launch; a 0 grid is invalid
         return out

@@ -25,8 +25,10 @@ result as zero of its sign (:func:`_ftz` after every rounded step), while
 the final select passes the pixel itself through unflushed.
 
 ``denoise_kernel(stack)`` launches ``csrc/denoise.cu`` on a CUDA tensor
-(which states its design and what bounds it) and runs the plain version on
-a CPU tensor. ``LAUNCHES["denoise"]`` counts kernel launches.
+(a warp walks a column strip down the image with the 3x3 window in
+registers; the source states its design and what bounds it) and runs the
+plain version on a CPU tensor. ``LAUNCHES["denoise"]`` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -55,8 +57,11 @@ _NINTH = 1.0 / 9.0
 _KERNEL_DTYPES = {torch.uint8: 0, torch.bool: 0, torch.int32: 1,
                   torch.float32: 2}
 _MAX_GRID_YZ = 65535
+_MAX_INT32 = torch.iinfo(torch.int32).max
 _F32_SIGN_BIT = torch.iinfo(torch.int32).min  # 0x80000000 as an int32
-_TILE_H = 8  # rows of one block's output tile (kTileH in csrc/denoise.cu)
+# one block of the kernel: a strip of STRIP_W columns (kStripW in
+# csrc/denoise.cu) walked down STRIP_H rows (kStripH)
+STRIP_H, STRIP_W = 32, 512
 
 LAUNCHES: Dict[str, int] = {"denoise": 0}
 
@@ -180,6 +185,18 @@ def denoise_kernel(stack: Tensor) -> DenoiseSummary:
     return DenoiseSummary(image=launch(stack))
 
 
+def check_shape(b: int, h: int, w: int) -> None:
+    """Raises for a (b, h, w) stack the kernel's grid cannot hold: images
+    along z and row strips along y (at most 65535 each), column strips
+    along x, and rows and columns as int32."""
+    strips = -(-h // STRIP_H)
+    if b > _MAX_GRID_YZ or strips > _MAX_GRID_YZ:
+        raise ValueError(f"(batch {b}, {strips} row strips) exceeds "
+                         f"{_MAX_GRID_YZ} a grid dimension")
+    if w > _MAX_INT32 - STRIP_W:
+        raise ValueError(f"width {w} exceeds the kernel's int32 columns")
+
+
 def launch(stack: Tensor) -> Tensor:
     """The ``denoise`` CUDA kernel on a CUDA (B, H, W) stack."""
     if not stack.is_cuda:
@@ -190,9 +207,7 @@ def launch(stack: Tensor) -> Tensor:
     if code is None:  # one device cast pass
         x, code = x.to(torch.float32), 2
     b, h, w = x.shape
-    if b > _MAX_GRID_YZ or -(-h // _TILE_H) > _MAX_GRID_YZ:
-        raise ValueError(f"(batch {b}, {-(-h // _TILE_H)} row tiles) exceeds "
-                         f"{_MAX_GRID_YZ} a grid dimension")
+    check_shape(b, h, w)
     out = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
     if out.numel() == 0:  # nothing to launch; a 0 grid is invalid
         return out

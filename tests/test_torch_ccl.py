@@ -1,15 +1,24 @@
 """Parity: the port's CCL (plain version, canonicalization, CPU wrapper)
 against the JAX package's ``labels`` (jnp reference) and ``labels_pallas``
 (Pallas kernel in interpret mode), and against a pure-Python BFS oracle,
-on the same seeded numpy masks. Tolerance: exact, dtypes included.
+on the same seeded numpy masks; and a NumPy model of the CUDA kernel's
+algorithm (``csrc/ccl.cu``: tile-local union-find, seam links, per-tile
+rewrite) against the TPU kernel's fixpoint and the plain version, since
+the kernel itself runs only on the card. Tolerance: exact, dtypes
+included.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.experimental import pallas as pl  # noqa: E402
 
 from repro.kernels import ccl as jccl  # noqa: E402
 from repro_torch.kernels import ccl  # noqa: E402
@@ -174,3 +183,238 @@ def test_pad_invariance():
     assert torch.all(pad.labels[0, 13:] == 0)
     assert torch.all(pad.labels[0, :, 19:] == 0)
     assert torch.equal(pad.n_components, base.n_components)
+
+
+# ------------------------------------------------------------------------
+# The CUDA kernel's design (csrc/ccl.cu), modelled in NumPy: the card alone
+# runs the kernel, so these tests hold its algorithm (tile-local union-find
+# over segment runs, border entries, seam links with the 2 x 2 skips, the
+# per-tile rewrite) against the reference's fixpoint on the CPU.
+
+CSRC = Path(ccl.__file__).resolve().parent / "csrc" / "ccl.cu"
+_CONSTS = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);",
+                                            CSRC.read_text())}
+# the kernel's tile and the pixels of a tile row one thread owns
+KERNEL_TILE = (_CONSTS["kTileH"], _CONSTS["kTileW"], _CONSTS["kSeg"])
+_UNSET = -7  # a labels entry the model's pass 1 has not written
+
+
+def _tile_forest(fg, r0, c0, tile, rng):
+    """Pass 1's shared forest of the tile at (r0, c0): the run starts of
+    its segments as nodes, linked as the kernel links them (in a shuffled
+    order, the threads' order being arbitrary). Returns the tile's mask,
+    each pixel's run start (tile-local), and a find."""
+    th, tw, seg = tile
+    h, w = fg.shape
+    rh, rw = min(th, h - r0), min(tw, w - c0)
+    t = np.zeros((th, tw), bool)
+    t[:rh, :rw] = fg[r0:r0 + rh, c0:c0 + rw]
+    start = np.full((th, tw), -1)
+    parent = {}
+    for lr in range(th):
+        for s0 in range(0, tw, seg):
+            st = -1
+            for lc in range(s0, s0 + seg):
+                if not t[lr, lc]:
+                    st = -1
+                    continue
+                if st < 0:
+                    st = parent.setdefault(lr * tw + lc, lr * tw + lc)
+                start[lr, lc] = st
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    links = []
+    for lr in range(th):
+        for s0 in range(0, tw, seg):
+            if s0 and t[lr, s0] and t[lr, s0 - 1]:
+                links.append((start[lr, s0], start[lr, s0 - 1]))
+            for lc in range(s0, s0 + seg):
+                if lr and t[lr, lc] and t[lr - 1, lc] and not (
+                        lc and t[lr, lc - 1] and t[lr - 1, lc - 1]):
+                    links.append((start[lr, lc], start[lr - 1, lc]))
+    rng.shuffle(links)
+    for a, b in links:
+        a, b = find(a), find(b)
+        parent[max(a, b)] = min(a, b)
+    border = np.zeros((th, tw), bool)
+    border[[0, rh - 1], :rw] = True
+    border[:rh, [0, rw - 1]] = True
+    return t, start, find, border
+
+
+def _model_fixpoint(mask, tile, seed=0):
+    """The kernel's three passes on one (H, W) mask, in NumPy; every read of
+    the global forest is checked to hit an entry pass 1 wrote."""
+    th, tw, _ = tile
+    rng = np.random.default_rng(seed)
+    fg = mask != 0
+    h, w = fg.shape
+    lab = np.full(h * w, _UNSET, np.int64)
+    tiles = [(r0, c0) for r0 in range(0, h, th) for c0 in range(0, w, tw)]
+
+    def gidx(r0, c0, k):
+        return (r0 + k // tw) * w + c0 + k % tw
+
+    def read(x):  # the entry of 1-based label x
+        v = lab[x - 1]
+        assert v > 0, f"read of entry {x - 1}: {v}"
+        return int(v)
+
+    def gfind(x):  # path halving, as find_root
+        while (p := read(x)) != x:
+            if (gp := read(p)) == p:
+                return p
+            lab[x - 1] = min(lab[x - 1], gp)
+            x = gp
+        return x
+
+    for r0, c0 in tiles:  # pass 1
+        t, start, find, border = _tile_forest(fg, r0, c0, tile, rng)
+        for lr, lc in zip(*np.nonzero(border)):
+            g = (r0 + lr) * w + c0 + lc
+            if not t[lr, lc]:
+                lab[g] = 0
+                continue
+            root = gidx(r0, c0, find(start[lr, lc])) + 1
+            lab[g] = lab[root - 1] = root
+    pairs = []  # pass 2
+    for r0 in range(th, h, th):
+        for c in range(w):
+            p = r0 * w + c
+            if not (c and lab[p - 1] and lab[p - w - 1]):
+                pairs.append((p, p - w))
+    for c0 in range(tw, w, tw):
+        for r in range(h):
+            p = r * w + c0
+            if not (r % th and lab[p - w] and lab[p - w - 1]):
+                pairs.append((p, p - 1))
+    rng.shuffle(pairs)
+    for p, q in pairs:
+        a, b = int(lab[p]), int(lab[q])
+        assert _UNSET not in (a, b)
+        if not (a and b):
+            continue
+        while True:  # unite
+            a, b = gfind(a), gfind(b)
+            if a == b:
+                break
+            a, b = max(a, b), min(a, b)
+            old = int(lab[a - 1])
+            lab[a - 1] = min(old, b)
+            if old == a:
+                break
+            a = old
+    rng.shuffle(tiles)  # pass 3, the tiles in any order
+    for r0, c0 in tiles:
+        t, start, find, border = _tile_forest(fg, r0, c0, tile, rng)
+        flagged = {find(start[p]) for p in zip(*np.nonzero(border & t))}
+        final = {}
+        for lr, lc in zip(*np.nonzero(t)):
+            root = find(start[lr, lc])
+            if root not in final:
+                g = gidx(r0, c0, root) + 1
+                final[root] = gfind(g) if root in flagged else g
+        rh, rw = min(th, h - r0), min(tw, w - c0)
+        for lr in range(rh):
+            for lc in range(rw):
+                lab[(r0 + lr) * w + c0 + lc] = (
+                    final[find(start[lr, lc])] if t[lr, lc] else 0)
+    return lab.reshape(h, w).astype(np.int32)
+
+
+def _pallas_fixpoint(x):
+    """The TPU kernel's raw fixpoint, in interpret mode as the JAX tests
+    run it."""
+    b, h, w = x.shape
+    spec = pl.BlockSpec((1, h, w), lambda i: (i, 0, 0))
+    return np.asarray(pl.pallas_call(
+        jccl._ccl_kernel, grid=(b,), in_specs=[spec], out_specs=spec,
+        out_shape=jax.ShapeDtypeStruct((b, h, w), jnp.int32),
+        interpret=True)(jnp.asarray(x)))
+
+
+def _corner_component(h, w):
+    """A component whose minimum lies in the last tile: a hook that starts
+    at the top of the bottom-right tile and runs down and then left into
+    the bottom-left tile, beside random specks."""
+    m = _random((h, w), 31, density=0.05)
+    th, tw, _ = KERNEL_TILE
+    r, c = (h - 1) // th * th, (w - 1) // tw * tw + 3
+    m[r - 1:, :] = 0
+    m[r:h, c] = 1
+    m[h - 1, 1:c + 1] = 1
+    return m
+
+
+MODEL_CASES = [
+    ("random 70 x 300", _random((70, 300), 41)),
+    ("dense 70 x 300", _random((70, 300), 42, density=0.75)),
+    ("sparse 70 x 300", _random((70, 300), 43, density=0.3)),
+    ("serpentine 97 x 390", _serpentine(97, 390)),
+    ("serpentine 390 x 97, transposed",
+     np.ascontiguousarray(_serpentine(97, 390).T)),
+    ("all-one 65 x 257", np.ones((65, 257), np.uint8)),
+    ("checkerboard 33 x 129", _checkerboard(33, 129)),
+    ("ragged 33 x 129", _random((33, 129), 44, density=0.6)),
+    ("ragged 31 x 127", _random((31, 127), 45, density=0.6)),
+    ("minimum in the last tile", _corner_component(70, 300)),
+]
+MODEL_IDS = [c[0] for c in MODEL_CASES]
+
+
+def test_model_reads_the_kernels_tile():
+    """The model runs at the tile csrc/ccl.cu declares, whose segments
+    divide its width, as the model assumes."""
+    th, tw, seg = KERNEL_TILE
+    assert (th, tw, seg) == (32, 128, 16)
+    assert tw % seg == 0
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=MODEL_IDS)
+def test_kernel_model_matches_pallas_fixpoint(case):
+    """The kernel's design at its own tile, against the TPU kernel's
+    fixpoint and the port's plain version."""
+    _, m = case
+    got = _model_fixpoint(m, KERNEL_TILE)
+    np.testing.assert_array_equal(got, _pallas_fixpoint(m[None])[0])
+    np.testing.assert_array_equal(
+        got, ccl.ccl_fixpoint_plain(torch.from_numpy(m)[None])[0].numpy())
+
+
+@pytest.mark.parametrize("tile", [(4, 8, 4), (3, 6, 3), (2, 16, 16),
+                                  (5, 4, 2)], ids=str)
+@pytest.mark.parametrize("seed", range(3))
+def test_kernel_model_many_seams(tile, seed):
+    """The same design with small tiles, so that a small mask has seams
+    everywhere: random masks of three densities, a serpentine and a
+    checkerboard, each against the plain version."""
+    masks = [_random((23, 37), 50 + seed, density=d) for d in (0.3, 0.6, 0.9)]
+    masks += [_serpentine(23, 37), _checkerboard(23, 37)]
+    for i, m in enumerate(masks):
+        want = ccl.ccl_fixpoint_plain(torch.from_numpy(m)[None])[0].numpy()
+        np.testing.assert_array_equal(
+            _model_fixpoint(m, tile, seed=seed), want, err_msg=f"mask {i}")
+
+
+@pytest.mark.parametrize("jax_fn", ["labels", "labels_pallas"])
+@pytest.mark.parametrize("shape", [(31, 127), (32, 128), (33, 129),
+                                   (63, 255), (65, 257)], ids=str)
+def test_plain_matches_jax_at_tile_boundaries(shape, jax_fn):
+    """The yardstick the card holds the kernel to, pinned to the reference
+    one pixel either side of the kernel's tile and of two tiles."""
+    x = _random((2, *shape), sum(shape), density=0.6)
+    want = getattr(jccl, jax_fn)(jnp.asarray(x))
+    assert_summary_equal(ccl.labels(torch.from_numpy(x)), want)
+
+
+def test_shape_checks_follow_the_grid():
+    ccl.check_shape(65535, 32_000, 32_000)  # 1,024,000,000 < 2^30
+    with pytest.raises(ValueError, match="batch 65536 exceeds 65535"):
+        ccl.check_shape(65536, 4, 4)
+    with pytest.raises(ValueError, match="sentinel"):
+        ccl.check_shape(1, 1 << 15, 1 << 15)

@@ -152,3 +152,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert ("2 synthetic 64 x 96 granules killed at stack 3, newest "
             "checkpoint truncated, resumed with a warning") in out.stdout
     assert "% of packed_analyze" in out.stdout
+    for case in ("serpentine", "all-foreground", "checkerboard"):
+        assert f"exact: ccl [{case} 1 x 64^2]" in out.stdout
+    assert "time: ccl passes [8, 64, 64] uint8: local " in out.stdout
+    assert "time: ccl passes [1, 64, 64] uint8: local " in out.stdout
+    assert "% of the whole op" in out.stdout
