@@ -19,7 +19,12 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      bit for all seven kernels, denoise included), the tile and strip
      boundaries of ccl (32 x 128 tiles) and denoise (4-column vectors,
      512-column strips of 32 rows) one pixel either side, views whose
-     base is misaligned for vector loads, and for ccl alone the
+     base is misaligned for vector loads, for the full-column ychg
+     kernels every vector width (W * itemsize 0, 8, 4, 2 and 1 mod 16),
+     bases 1 to 8 bytes off 16, H from 0 past their segment count and
+     columns of alternating rows past their byte and 16-bit lanes'
+     flushes, 64-bit integer masks through ``Engine()`` against their low
+     32 bits (ychg, ccl, denoise), and for ccl alone the
      one-pixel-wide serpentine, all foreground and a checkerboard at
      1 x 8192^2; split-H with H not a multiple of block_h, the serving
      batches (the two-kernel path one mask at a time) and the paper's
@@ -29,7 +34,9 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      (CUDA events, median of 15 samples of 5 back-to-back calls, after a
      warm-up), beside its plain version, its bound and, for ccl, the
      canonical re-ranking alone and its three passes apart (local, seams,
-     final). The two packed
+     final), the C entry points alone of ychg_fused_full and
+     ychg_colscan_full on the lone mask, and ychg_fused_full beside
+     ychg_fused_splith on the serving batch and the scene. The two packed
      kernels are held to their plain versions on the packed form of H = 1
      to 9, W = 1 and ragged masks, all-one columns, checkerboards,
      serpentines, four dtypes, float32 subnormals, the 4096^2 snowfield of
@@ -206,6 +213,30 @@ def ptx_float_ops(source: str) -> dict:
                    capture_output=True, timeout=300)
     return dict(collections.Counter(re.findall(
         r"\b((?:add|sub|mul|fma|sqrt)\.[a-z.]*f32)", out.read_text())))
+
+
+def ptxas_summary(log: str) -> str:
+    """One line of nvcc's ``-Xptxas -v`` report: the kernels, their range
+    of registers a thread, and the spill bytes with the kernels that spill."""
+    import re
+
+    regs, spills = [], {}
+    kernel = "?"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and int(m.group(1)) + int(m.group(2)):
+            spills[kernel] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs.append(int(m.group(1)))
+    if not regs:
+        return "no report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a "
+            f"thread, spills {json.dumps(spills) if spills else 'none'}")
 
 
 def scene_span_seconds() -> dict:
@@ -534,6 +565,85 @@ def kernel_cases(np, torch, modis):
     return cases
 
 
+# the full-column scan (csrc/ychg_scan.cuh): 1024 threads a block, at
+# least 4 lanes, so 256 row segments for one narrow image; segments past a
+# byte lane's flush (252 rows, 126 runs: 547 rows would wrap one) and past
+# a 16-bit lane's (252 * 256 rows)
+SCAN_MAX_SEGMENTS = 256
+SCAN_LONG_SEGMENTS = (547, 252 * 256 + 256)
+
+
+def scan_cases(np, torch):
+    """(label, cuda stack) for the full-column kernels (``ychg_fused_full``
+    and ``ychg_colscan_full``): every vector width the launch can pick
+    (W * itemsize = 0, 8, 4, 2 and 1 mod 16 for uint8; 0, 8 and 4 for
+    int32 and float32), contiguous views whose base is 1, 2, 4 or 8 bytes
+    off a 16-byte boundary, H from 0 up past the segment count, float32
+    subnormals at every width, and columns of alternating rows whose runs
+    overflow a byte lane (8192 high, and segments of 547 rows) and a 16-bit
+    lane (segments of 64,768 rows) were their flushes missing."""
+    rng = np.random.default_rng(20130616)
+    dev = DEV
+
+    def rand(shape, p=0.5):
+        return torch.from_numpy((rng.random(shape) < p).astype(
+            np.uint8)).to(dev)
+
+    cases = []
+    for w in (512, 520, 516, 514, 513, 8200, 8197):
+        x = rand((3, 67, w))
+        cases.append((f"uint8 (3, 67, {w})", x))
+        cases.append((f"bool (3, 67, {w})", x.bool()))
+    for w in (256, 258, 257):
+        x = rand((3, 67, w))
+        cases.append((f"int32 (3, 67, {w})", x.to(torch.int32)))
+        cases.append((f"float32 (3, 67, {w})", x.to(torch.float32)))
+        cases.append((f"float32 subnormals (2, 65, {w})", torch.from_numpy(
+            subnormal_values(np, rng, (2, 65, w))).to(dev)))
+    for dtype, width in ((torch.uint8, 1), (torch.int32, 4),
+                         (torch.float32, 4)):
+        flat = rand(2 * 57 * 512 + 16).to(dtype)
+        for off in (1, 2, 4, 8):
+            if off % width:
+                continue
+            n = off // width
+            name = str(dtype).split(".")[-1]
+            cases.append((f"{name} base {off} B off 16 (2, 57, 512)",
+                          flat[n:n + 2 * 57 * 512].view(2, 57, 512)))
+    for h in (0, 1, 2, 5, 31, 33, SCAN_MAX_SEGMENTS - 1,
+              SCAN_MAX_SEGMENTS + 1, 1000):
+        cases.append((f"H = {h} (2, {h}, 700)", rand((2, h, 700))))
+    alt = torch.zeros((8, SERVE_RES, 512), dtype=torch.uint8, device=dev)
+    alt[:, ::2] = 1
+    alt[:, ::5, 7] = 0
+    cases.append((f"alternating rows (1, {SERVE_RES}, 512)", alt[:1]))
+    cases.append((f"alternating rows (8, {SERVE_RES}, 512)", alt))
+    for rows in SCAN_LONG_SEGMENTS:
+        tall = torch.zeros((1, SCAN_MAX_SEGMENTS * rows, 16), dtype=torch.uint8,
+                           device=dev)
+        tall[:, ::2] = 1
+        tall[:, ::7, 3] = 0
+        cases.append((f"alternating rows, segments of {rows} "
+                      f"{tuple(tall.shape)}", tall))
+    return cases
+
+
+def wide_int_cases(np):
+    """(label, host (B, H, W) 64-bit mask, its low 32 bits) for the engine:
+    2**32 and -2**32 (low bits 0), 2**40 + 1 and 2**64 - 1 (low bits not
+    0) beside ordinary pixels, as jnp.asarray reduces them with x64 off."""
+    rng = np.random.default_rng(20130617)
+    out = []
+    for dtype, narrow, vals in [
+            (np.int64, np.int32, [0, 1, 3, 2**32, -2**32, 2**40 + 1]),
+            (np.uint64, np.uint32, [0, 1, 3, 2**32, 2**64 - 1, 2**40 + 1])]:
+        v = np.array(vals, dtype)
+        m = v[rng.integers(0, len(v), (2, 300, 517))]
+        out.append((f"{np.dtype(dtype).name} (2, 300, 517)", m,
+                    m.astype(narrow)))
+    return out
+
+
 def packed_cases(np, torch, modis):
     """(label, cuda (H, W) mask) for the packed kernels' exactness phase:
     H = 1 to 9 (within and across one packed byte), W = 1, ragged H and W,
@@ -639,9 +749,7 @@ def main() -> int:
     for source in sources:
         log = _build.library_path(source).with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas [{source}]: {line.strip()}")
+            print(f"  ptxas [{source}]: {ptxas_summary(log.read_text())}")
     # denoise's float32 arithmetic must flush subnormals as the
     # reference's XLA does: every form in its PTX is a .ftz one
     ops = ptx_float_ops("denoise")
@@ -736,6 +844,35 @@ def main() -> int:
         compare_splith(label, x, block_h)
         for i in range(x.shape[0]):
             compare_colscan(f"{label} [{i}]", x[i], block_h)
+    for label, x in scan_cases(np, torch):
+        compare_full(label, x)
+        for i in range(min(x.shape[0], 2)):
+            tally("ychg_colscan_full", max_abs_err(
+                {"runs": kc.launch_full(x[i])},
+                {"runs": kc.colscan_full_plain(x[i])},
+                f"ychg_colscan_full [{label} [{i}]]"))
+        del x
+    free()
+    # 64-bit integer masks keep their low 32 bits, as jnp.asarray does
+    for label, wide, narrow in wide_int_cases(np):
+        ref = ychg.analyze(torch.from_numpy(narrow).to(DEV))
+        max_abs_err(
+            {f: getattr(Engine().analyze_batch(wide).to_summary(), f)
+             for f in fields}, {f: getattr(ref, f) for f in fields},
+            f"Engine() on {label} vs the plain reference on its low 32 bits")
+        for op in ("ychg", "ccl", "denoise"):
+            want = Engine().analyze_batch(narrow, op=op).to_host()
+            for where, x in (("host", wide),
+                             ("device", torch.from_numpy(wide).to(DEV))):
+                got = Engine().analyze_batch(x, op=op).to_host()
+                for f, w in want.items():
+                    check(got[f].dtype == w.dtype and got[f].shape == w.shape
+                          and got[f].tobytes() == w.tobytes(),
+                          f"Engine() op {op} on {label} ({where}): {f} "
+                          f"differs from it on the low 32 bits")
+        print(f"exact: Engine() on a {label} mask equals it on its low 32 "
+              f"bits for ychg, ccl and denoise, from the host and from the "
+              f"device", flush=True)
     runs = torch.from_numpy(np.random.default_rng(20130614).integers(
         0, 1000, 5000).astype(np.int32)).to(DEV)
     tally("ychg_diff", max_abs_err(kc.launch_diff(runs), kc.diff_plain(runs),
@@ -825,6 +962,7 @@ def main() -> int:
 
     timings = {}
     lone, scene_img = serve_stack[0], scene_stack[0]
+    lone_stack = serve_stack[:1]
     lone_runs = kc.launch_full(lone)
     scene_packed, lone_packed = kp.pack_rows(scene_img), kp.pack_rows(lone)
     for name, x, run, plain, bound_fn, plain_samples in [
@@ -832,7 +970,7 @@ def main() -> int:
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
             # the service flushes a lone mask as a batch of 1 when the
             # submitting thread's content hash outlasts the delay window
-            ("ychg_fused_full", serve_stack[:1],
+            ("ychg_fused_full", lone_stack,
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
             ("ychg_fused_full", scene_stack,
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
@@ -905,6 +1043,28 @@ def main() -> int:
                   + " (C entry points; seams and final by difference of "
                   f"local, local + seams and all three) on {card}",
                   flush=True)
+        if name == "ychg_fused_full" and x is lone_stack:
+            # the C entry point alone on preallocated outputs (the totals
+            # accumulate over the calls; only the time is read)
+            lib = _build.load("ychg_fused", kf._SIGNATURES)
+            ptrs = kf._out_ptrs(kf.launch_full(x))
+            stream = torch.cuda.current_stream().cuda_stream
+            row["entry_point_ms"] = time_ms(
+                lambda: lib.ychg_fused_full(x.data_ptr(),
+                                            kf._KERNEL_DTYPES[x.dtype],
+                                            *x.shape, *ptrs, stream), reps=50)
+            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
+        if name == "ychg_colscan_full" and x is lone:
+            lib = _build.load("ychg_colscan", kc._SIGNATURES)
+            out = kc.launch_full(x)
+            stream = torch.cuda.current_stream().cuda_stream
+            row["entry_point_ms"] = time_ms(
+                lambda: lib.ychg_colscan_full(x.data_ptr(),
+                                              kc._KERNEL_DTYPES[x.dtype],
+                                              *x.shape, out.data_ptr(),
+                                              stream), reps=50)
+            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
+            del out
         if name == "ychg_diff":
             # the C entry point alone on preallocated outputs: the wrapper's
             # checks and three allocations taken away
@@ -949,7 +1109,14 @@ def main() -> int:
               f"{100 * row['bound_share']:.1f}% of bound{extra}) on {card}",
               flush=True)
         free()
+    full, split = timings["ychg_fused_full"], timings["ychg_fused_splith"]
+    print(f"time: ychg_fused_full against ychg_fused_splith (block_h "
+          f"{SCENE_BLOCK_H}), the engine's two fused routes: serving batch "
+          f"{full[0]['ms']:.4f} ms against {split[1]['ms']:.4f} ms, scene "
+          f"{full[2]['ms']:.4f} ms against {split[0]['ms']:.4f} ms on {card}",
+          flush=True)
     del serve_stack, float_stack, scene_stack, lone, scene_img, lone_runs
+    del lone_stack
     del scene_packed, lone_packed
     free()
 

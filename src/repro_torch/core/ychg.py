@@ -15,7 +15,9 @@ Dtypes follow the JAX package, which runs with x64 off: every count is
 int32 and ``transitions`` is bool. ``torch.sum`` of int32 or bool returns
 int64, so every reduction here names ``dtype=torch.int32``. Images may be
 bool or any integer or float dtype (nonzero = foreground, as
-:func:`foreground` decides it), with any leading batch dims.
+:func:`foreground` decides it), with any leading batch dims. 64-bit
+integers keep their low 32 bits (:func:`narrow_wide_ints`), as the JAX
+package's ``jnp.asarray`` does with x64 off.
 """
 
 from __future__ import annotations
@@ -28,6 +30,20 @@ Tensor = torch.Tensor
 
 # float32 exponent field: all zero for +-0 and every subnormal
 F32_EXPONENT_BITS = 0x7F800000
+# 64-bit integer dtypes and the 32-bit ones jnp.asarray reduces them to
+_NARROWED = {torch.int64: torch.int32, torch.uint64: torch.uint32}
+
+
+def narrow_wide_ints(x: Tensor) -> Tensor:
+    """int64 as int32 and uint64 as uint32, each keeping its low 32 bits, as
+    ``jnp.asarray`` reduces them with x64 off (2**32 becomes 0, 2**40 + 1
+    becomes 1); any other tensor is returned as it is. Both casts wrap, on
+    the CPU and on the card (torch 2.11 on an H100 casts uint64 to uint32
+    and compares and converts uint32 on CUDA tensors).
+    """
+    if x.dtype in _NARROWED:
+        return x.to(_NARROWED[x.dtype])
+    return x
 
 
 def foreground(img: Tensor) -> Tensor:
@@ -41,10 +57,12 @@ def foreground(img: Tensor) -> Tensor:
     float16 and bfloat16 are not flushed: XLA:CPU's compiled compare keeps
     their subnormals (the JAX package's eager ``core.ychg.analyze`` is the
     one exception, for bfloat16; the port follows its jitted and kernel
-    paths).
+    paths). int64 and uint64 are tested on their low 32 bits
+    (:func:`narrow_wide_ints`).
     """
     if img.dtype == torch.bool:
         return img
+    img = narrow_wide_ints(img)
     if img.dtype == torch.float64:
         img = img.float()
     if img.dtype == torch.float32:

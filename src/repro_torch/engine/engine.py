@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.ychg import YCHGSummary
+from repro_torch.core.ychg import YCHGSummary, narrow_wide_ints
 from repro_torch.engine import ops as engine_ops
 from repro_torch.engine import registry
 
@@ -203,16 +203,18 @@ class Engine:
 
     def _ingest(self, imgs: Any) -> Tensor:
         # a tensor on the engine's device passes through untouched; a tensor
-        # elsewhere, and host data, are copied onto it (never run in place)
+        # elsewhere, and host data, are copied onto it (never run in place).
+        # 64-bit integers keep their low 32 bits, as jnp.asarray does with
+        # x64 off: host data before the copy, tensors on the device
         if isinstance(imgs, torch.Tensor):
-            x = imgs.to(self.device)
+            x = narrow_wide_ints(imgs.to(self.device))
         else:
             a = np.ascontiguousarray(imgs)
             if not a.flags.writeable:
                 a = a.copy()
-            x = torch.from_numpy(a).to(self.device)
+            x = narrow_wide_ints(torch.from_numpy(a)).to(self.device)
         if self._cast_dtype is not None and x.dtype != self._cast_dtype:
-            x = x.to(self._cast_dtype)
+            x = narrow_wide_ints(x.to(self._cast_dtype))
         return x
 
     # ------------------------------------------------------------- dispatch

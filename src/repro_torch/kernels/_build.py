@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the root of
-the checkout. The hash covers the source and the compiler flags, so a
-library built from other sources is never loaded. Nothing is built when a
+the checkout. The hash covers the source, every header of ``csrc/``
+(``*.cuh``, which the sources include) and the compiler flags, so a library
+built from other sources is never loaded. Nothing is built when a
 module is imported: :func:`load` builds on the first kernel launch, and
 :func:`build` builds several sources at once, one nvcc process each, all
 started together. The compiler's ``-Xptxas -v`` report (registers, shared
@@ -51,8 +52,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to, named by the hash of its inputs."""
+    """Where ``csrc/<name>.cu`` builds to, named by the hash of its inputs:
+    the source, the headers beside it and the compiler flags."""
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -24,14 +24,13 @@
 //    launch takes.
 //
 // What the design does about it:
-//  * One thread per column as in the paper, but ychg_colscan_full gives each
-//    column kSegs threads of one block: thread (x, y) scans rows
-//    [y * seg, (y + 1) * seg) of column x, starting from the row just above
-//    its segment (the run-start predicate x[i] & ~x[i-1] needs only that
-//    one row), and the block sums the kSegs partial counts in shared
-//    memory. That is kSegs times the threads of one thread a column, for
-//    the same function. Consecutive threads of a warp take consecutive
-//    columns, so each row's loads coalesce.
+//  * ychg_colscan_full is the full-column scan of ychg_scan.cuh (which
+//    states its design) for one image, without the halo column: wide vector
+//    loads along a row, uint8 counted four pixels a 32-bit word, H cut into
+//    row segments among the warps of a block, each entered with the row
+//    just above it, and summed in shared memory; the block's lanes chosen
+//    at launch so that one image fills the card. Each block writes its
+//    tile's runs.
 //  * The TPU's streamed kernel carries the last row of one H block to the
 //    next in VMEM scratch, which relies on the TPU running the grid in
 //    order. CUDA blocks run in no order, so in ychg_colscan_splith every
@@ -53,26 +52,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ychg_scan.cuh"
+
 namespace {
 
-constexpr int kCols = 32;  // columns of one ychg_colscan_full block
-constexpr int kSegs = 8;   // threads sharing one column in that block
-constexpr int kThreads = 256;
-
-enum DType : int { kU8 = 0, kI32 = 1, kF32 = 2 };
-
-template <typename T>
-__device__ __forceinline__ int foreground(T v) {
-  return v != T(0);
-}
-
-// float32 as the reference's XLA decides it: +-0 and every subnormal (all
-// exponent bits zero) are background, NaN and +-inf foreground. Tested on
-// the bits, so no compiler flush mode can change it.
-template <>
-__device__ __forceinline__ int foreground<float>(float v) {
-  return (__float_as_uint(v) & 0x7f800000u) != 0u;
-}
+constexpr int kThreads = 256;  // the split-H and diff kernels' blocks
 
 // Maximal runs that start within `rows` rows of one column from p, entered
 // with the foreground bit of the row above (0 at the top of the image).
@@ -89,28 +73,21 @@ __device__ __forceinline__ int scan_column(const T* __restrict__ p, int64_t W,
   return runs;
 }
 
-// Grid ceil(W / kCols), block (kCols, kSegs).
-template <typename T>
-__global__ void __launch_bounds__(kCols * kSegs)
-colscan_full_kernel(const T* __restrict__ img, int64_t H, int64_t W,
-                    int* __restrict__ runs) {
-  __shared__ int part[kSegs][kCols];
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
-  const int64_t seg = (H + kSegs - 1) / kSegs;
-  const int64_t r0 = threadIdx.y * seg;
-  int count = 0;
-  if (col < W && r0 < H) {
-    const int64_t rows = (H - r0 < seg) ? H - r0 : seg;
-    const T* p = img + r0 * W + col;
-    count = scan_column(p, W, rows, r0 > 0 ? foreground(p[-W]) : 0);
-  }
-  part[threadIdx.y][threadIdx.x] = count;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < W) {
-    int total = 0;
-#pragma unroll
-    for (int k = 0; k < kSegs; ++k) total += part[k][threadIdx.x];
-    runs[col] = total;
+// Grid tiles, block (lanes, kScanThreads / lanes): step 1 for one tile of
+// lanes vectors (ychg_scan.cuh), its runs written.
+template <typename T, int V>
+__global__ void __launch_bounds__(kScanThreads, 1)
+colscan_full_kernel(const uint8_t* __restrict__ img, int64_t H, int64_t W,
+                    int64_t nvec, int* __restrict__ runs) {
+  constexpr int E = V / static_cast<int>(sizeof(T));
+  __shared__ ScanTile tile;
+  scan_tile<T, V, false>(img, H, W, nvec, tile);
+  const int lanes = blockDim.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * E;
+  for (int c = threadIdx.y * lanes + threadIdx.x; c < lanes * E;
+       c += kScanThreads) {
+    if (c0 + c >= W) break;
+    runs[c0 + c] = tile.runs[tile_index<E>(c)];
   }
 }
 
@@ -143,15 +120,6 @@ diff_kernel(const int* __restrict__ runs, int64_t W,
 }
 
 template <typename T>
-void launch_full(const void* img, int64_t H, int64_t W, void* runs,
-                 cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((W + kCols - 1) / kCols));
-  const dim3 block(kCols, kSegs);
-  colscan_full_kernel<T><<<grid, block, 0, stream>>>(
-      static_cast<const T*>(img), H, W, static_cast<int*>(runs));
-}
-
-template <typename T>
 void launch_splith(const void* img, int64_t H, int64_t W, int64_t block_h,
                    void* runs, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((W + kThreads - 1) / kThreads),
@@ -162,7 +130,7 @@ void launch_splith(const void* img, int64_t H, int64_t W, int64_t block_h,
 
 bool valid_width(int64_t W) {
   // a grid dimension of 0 is an invalid launch; x holds at most 2^31 - 1
-  return W >= 1 && (W + kCols - 1) / kCols <= 0x7fffffff;
+  return W >= 1 && (W + kThreads - 1) / kThreads <= 0x7fffffff;
 }
 
 }  // namespace
@@ -170,20 +138,19 @@ bool valid_width(int64_t W) {
 extern "C" int ychg_colscan_full(const void* img, int dtype, int64_t H,
                                  int64_t W, void* runs, void* stream) {
   if (!valid_width(W) || H < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int isz = itemsize_of(dtype);
+  const int vec = vec_bytes(img, W, isz);
+  const int64_t nvec = W * isz / vec;
+  const int lanes = choose_lanes(1, nvec, sm_count());
+  const dim3 grid(static_cast<unsigned>((nvec + lanes - 1) / lanes));
+  const dim3 block(lanes, kScanThreads / lanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kU8:
-      launch_full<uint8_t>(img, H, W, runs, s);
-      break;
-    case kI32:
-      launch_full<int32_t>(img, H, W, runs, s);
-      break;
-    case kF32:
-      launch_full<float>(img, H, W, runs, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool launched = with_layout(dtype, vec, [&](auto layout) {
+    using T = typename decltype(layout)::type;
+    colscan_full_kernel<T, decltype(layout)::vec><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(img), H, W, nvec, static_cast<int*>(runs));
+  });
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,35 +7,37 @@
 //   fused_analyze_streamed).
 //
 // What bounds them: device-memory bytes. Each pixel is read once and costs
-// about three integer operations; the outputs are 13 bytes a column plus 8 a
+// a few integer operations; the outputs are 13 bytes a column plus 8 a
 // image. The serving batch, 8 x 8192^2 uint8, reads 536,870,912 B: about
 // 0.16 ms at 3.35 TB/s. A 21000^2 scene reads 441 MB: about 0.13 ms.
 //
 // What the design does about it:
-//  * One thread per column (the paper's own CUDA mapping). Consecutive
-//    threads take consecutive columns of one image, so each row's loads
-//    coalesce, and the row loop is unrolled so that several rows' loads are
-//    in flight per thread.
+//  * ychg_fused_full is the full-column scan of ychg_scan.cuh (which states
+//    its design): wide vector loads along a row, uint8 counted four pixels
+//    a 32-bit word, H cut into row segments among the warps of a block and
+//    summed in shared memory, the lanes of a block chosen at launch so
+//    that one image fills the card, and a halo column for step 2. Then, in
+//    the same launch, step 2 for the block's columns from shared memory and
+//    the totals. Grid (tiles, B).
 //  * The mask is read in its own dtype (uint8/bool, int32 or float32) and
-//    the ragged right edge is masked here: no cast-and-pad pass over device
-//    memory before the launch, as the TPU wrapper needs.
+//    every row is whole vectors: no cast-and-pad pass over device memory
+//    before the launch, as the TPU wrapper needs.
 //  * The TPU kernels carry the left neighbour's run count from one W tile
 //    to the next in a (1, 1) VMEM scratch, which relies on the TPU's
 //    sequential grid. CUDA blocks run in no order, so no block depends on
-//    another: in ychg_fused_full the column tiles overlap by one column
-//    (kThreads threads own kThreads - 1 columns; thread 0 scans the left
-//    neighbour), and step 2 diffs against shared memory.
+//    another: a ychg_fused_full block scans the column left of its tile
+//    itself (the halo), and ychg_fused_splith runs step 2 in a second small
+//    launch.
 //  * Per-image totals: a block reduction, then one int32 atomicAdd per
 //    block. Integer addition is exact in any order, so the totals are
 //    deterministic.
 //  * ychg_fused_splith cuts H into segments of block_h rows, one grid z
-//    index each, so that a few wide images (a 21000^2 scene gives only
-//    21,000 columns, about 8% of the card's resident warps) still fill the
-//    card. A segment starts `prev` from the row just above it instead of a
-//    carried row, and adds its partial count into `runs` with atomicAdd.
-//    Step 2 and the totals then run in a second small launch over (B, W),
-//    once every segment is in (chosen over a last-arriving-block counter:
-//    it needs no extra zeroed scratch and no memory fences).
+//    index each, one thread a column of a segment. A segment starts `prev`
+//    from the row just above it instead of a carried row, and adds its
+//    partial count into `runs` with atomicAdd. Step 2 and the totals then
+//    run in a second small launch over (B, W), once every segment is in
+//    (chosen over a last-arriving-block counter: it needs no extra zeroed
+//    scratch and no memory fences).
 //  * Pixel offsets are 64-bit: 8 x 21000^2 is more than 2^31.
 //
 // Binding: plain C entry points, loaded with ctypes. Each launches on the
@@ -45,25 +47,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ychg_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-enum DType : int { kU8 = 0, kI32 = 1, kF32 = 2 };
-
-template <typename T>
-__device__ __forceinline__ int foreground(T v) {
-  return v != T(0);
-}
-
-// float32 as the reference's XLA decides it: +-0 and every subnormal (all
-// exponent bits zero) are background, NaN and +-inf foreground. Tested on
-// the bits, so no compiler flush mode can change it.
-template <>
-__device__ __forceinline__ int foreground<float>(float v) {
-  return (__float_as_uint(v) & 0x7f800000u) != 0u;
-}
+constexpr int kThreads = 256;  // the split-H kernels' blocks
 
 // Step 1 over `rows` rows of one column, starting at p, entered with the
 // foreground bit of the row above (0 at the top of the image).
@@ -80,10 +68,12 @@ __device__ __forceinline__ int scan_column(const T* __restrict__ p, int64_t W,
   return runs;
 }
 
-// Sums births and transitions over the block and adds them to the image's
-// totals. Every thread of the block must call it.
+// Sums births and transitions over a block of kBlock threads and adds them
+// to the image's totals. Every thread of the block must call it.
+template <int kBlock>
 __device__ __forceinline__ void add_block_totals(int births, int trans,
                                                  int* nh, int* nt) {
+  constexpr int kWarps = kBlock / 32;
   __shared__ int s_births[kWarps];
   __shared__ int s_trans[kWarps];
 #pragma unroll
@@ -91,8 +81,9 @@ __device__ __forceinline__ void add_block_totals(int births, int trans,
     births += __shfl_down_sync(0xffffffffu, births, o);
     trans += __shfl_down_sync(0xffffffffu, trans, o);
   }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   if (lane == 0) {
     s_births[warp] = births;
     s_trans[warp] = trans;
@@ -127,30 +118,37 @@ __device__ __forceinline__ int2 finish_column(int run, int left, int64_t o,
   return make_int2(born, t);
 }
 
-// Grid (ceil(W / (kThreads - 1)), B). Thread t of block x scans column
-// x * (kThreads - 1) - 1 + t; threads 1.. own their columns, thread 0 only
-// supplies the left neighbour of thread 1.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fused_full_kernel(const T* __restrict__ img, int64_t H, int64_t W,
-                  int* __restrict__ runs, uint8_t* __restrict__ trans,
-                  int* __restrict__ births, int* __restrict__ deaths,
-                  int* __restrict__ nh, int* __restrict__ nt) {
-  __shared__ int s_runs[kThreads];
+// Grid (tiles, B), block (lanes, kScanThreads / lanes): step 1 for one tile
+// of lanes vectors of one image (ychg_scan.cuh), then step 2 and the totals
+// for the tile's columns.
+template <typename T, int V>
+__global__ void __launch_bounds__(kScanThreads, 1)
+fused_full_kernel(const uint8_t* __restrict__ img, int64_t H, int64_t W,
+                  int64_t nvec, int* __restrict__ runs,
+                  uint8_t* __restrict__ trans, int* __restrict__ births,
+                  int* __restrict__ deaths, int* __restrict__ nh,
+                  int* __restrict__ nt) {
+  constexpr int E = V / static_cast<int>(sizeof(T));
+  __shared__ ScanTile tile;
   const int64_t b = blockIdx.y;
-  const int64_t col =
-      static_cast<int64_t>(blockIdx.x) * (kThreads - 1) - 1 + threadIdx.x;
-  int run = 0;
-  if (col >= 0 && col < W) run = scan_column(img + b * H * W + col, W, H, 0);
-  s_runs[threadIdx.x] = run;
-  __syncthreads();
-  int2 tot = make_int2(0, 0);
-  if (threadIdx.x > 0 && col < W) {
-    runs[b * W + col] = run;
-    tot = finish_column(run, s_runs[threadIdx.x - 1], b * W + col, trans,
-                        births, deaths);
+  scan_tile<T, V, true>(img + b * H * W * static_cast<int64_t>(sizeof(T)), H,
+                        W, nvec, tile);
+  const int lanes = blockDim.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * E;
+  int born = 0;
+  int changed = 0;
+  for (int c = threadIdx.y * lanes + threadIdx.x; c < lanes * E;
+       c += kScanThreads) {
+    if (c0 + c >= W) break;
+    const int run = tile.runs[tile_index<E>(c)];
+    const int left = c > 0 ? tile.runs[tile_index<E>(c - 1)] : tile.halo;
+    const int64_t o = b * W + c0 + c;
+    runs[o] = run;
+    const int2 t = finish_column(run, left, o, trans, births, deaths);
+    born += t.x;
+    changed += t.y;
   }
-  add_block_totals(tot.x, tot.y, nh + b, nt + b);
+  add_block_totals<kScanThreads>(born, changed, nh + b, nt + b);
 }
 
 // Grid (ceil(W / kThreads), B, ceil(H / block_h)): one H segment of one
@@ -184,19 +182,7 @@ splith_finish_kernel(int64_t W, const int* __restrict__ runs,
     const int left = col > 0 ? runs[o - 1] : 0;
     tot = finish_column(runs[o], left, o, trans, births, deaths);
   }
-  add_block_totals(tot.x, tot.y, nh + b, nt + b);
-}
-
-template <typename T>
-void launch_full(const void* img, int64_t B, int64_t H, int64_t W, void* runs,
-                 void* trans, void* births, void* deaths, void* nh, void* nt,
-                 cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((W + kThreads - 2) / (kThreads - 1)),
-                  static_cast<unsigned>(B));
-  fused_full_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(img), H, W, static_cast<int*>(runs),
-      static_cast<uint8_t*>(trans), static_cast<int*>(births),
-      static_cast<int*>(deaths), static_cast<int*>(nh), static_cast<int*>(nt));
+  add_block_totals<kThreads>(tot.x, tot.y, nh + b, nt + b);
 }
 
 template <typename T>
@@ -223,20 +209,23 @@ extern "C" int ychg_fused_full(const void* img, int dtype, int64_t B, int64_t H,
                                void* births, void* deaths, void* nh, void* nt,
                                void* stream) {
   if (!valid_args(dtype, B, H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  const int isz = itemsize_of(dtype);
+  const int vec = vec_bytes(img, W, isz);
+  const int64_t nvec = W * isz / vec;
+  const int lanes = choose_lanes(B, nvec, sm_count());
+  const dim3 grid(static_cast<unsigned>((nvec + lanes - 1) / lanes),
+                  static_cast<unsigned>(B));
+  const dim3 block(lanes, kScanThreads / lanes);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kU8:
-      launch_full<uint8_t>(img, B, H, W, runs, trans, births, deaths, nh, nt, s);
-      break;
-    case kI32:
-      launch_full<int32_t>(img, B, H, W, runs, trans, births, deaths, nh, nt, s);
-      break;
-    case kF32:
-      launch_full<float>(img, B, H, W, runs, trans, births, deaths, nh, nt, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool launched = with_layout(dtype, vec, [&](auto layout) {
+    using T = typename decltype(layout)::type;
+    fused_full_kernel<T, decltype(layout)::vec><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(img), H, W, nvec, static_cast<int*>(runs),
+        static_cast<uint8_t*>(trans), static_cast<int*>(births),
+        static_cast<int*>(deaths), static_cast<int*>(nh),
+        static_cast<int*>(nt));
+  });
+  if (!launched) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

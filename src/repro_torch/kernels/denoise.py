@@ -39,7 +39,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.ychg import F32_EXPONENT_BITS
+from repro_torch.core.ychg import F32_EXPONENT_BITS, narrow_wide_ints
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -156,9 +156,15 @@ def _filter(x: Tensor) -> Tensor:
     return torch.where(dev > TAU * rms, rms, x)
 
 
+def to_float32(x: Tensor) -> Tensor:
+    """The filter's float32 input, as the JAX package makes it: 64-bit
+    integers keep their low 32 bits first (``jnp.asarray`` with x64 off)."""
+    return narrow_wide_ints(x).to(torch.float32)
+
+
 def denoise_plain(stack: Tensor) -> Tensor:
     """Plain PyTorch version of the kernel: (B, H, W) any dtype -> float32."""
-    x = stack.to(torch.float32)
+    x = to_float32(stack)
     if x.numel() == 0:
         return x.clone()
     return _filter(x)
@@ -205,7 +211,7 @@ def launch(stack: Tensor) -> Tensor:
     x = stack.contiguous()
     code = _KERNEL_DTYPES.get(x.dtype)
     if code is None:  # one device cast pass
-        x, code = x.to(torch.float32), 2
+        x, code = to_float32(x), 2
     b, h, w = x.shape
     check_shape(b, h, w)
     out = torch.empty((b, h, w), dtype=torch.float32, device=x.device)

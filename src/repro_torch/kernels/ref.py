@@ -20,7 +20,10 @@ _FLT_MIN = torch.finfo(torch.float32).tiny  # the smallest normal float32
 def _nonzero(img: Tensor) -> Tensor:
     """Foreground as the reference's XLA decides it: float32 (and float64,
     rounded to float32 first) below the smallest normal magnitude is
-    background; NaN is foreground."""
+    background; NaN is foreground. 64-bit integers count by their low 32
+    bits, as ``jnp.asarray`` keeps them with x64 off."""
+    if img.dtype in (torch.int64, torch.uint64):
+        img = img.view(torch.int64) & 0xFFFFFFFF
     if img.dtype == torch.float64:
         img = img.float()
     if img.dtype == torch.float32:

@@ -5,7 +5,9 @@ design and what bounds them on Hopper), each beside its plain PyTorch
 version:
 
   ``ychg_fused_full``    replaces ``repro/kernels/ychg_fused.py::_fused_kernel``:
-                         one thread per column walks the whole column.
+                         whole columns, each cut into row segments that the
+                         warps of one block scan with wide loads along the
+                         row and sum (``csrc/ychg_scan.cuh``).
   ``ychg_fused_splith``  replaces ``_fused_streamed_kernel``: the columns are
                          cut into ``block_h``-row segments, scanned in
                          parallel and summed, then step 2 runs in a second
@@ -123,7 +125,7 @@ def _check(imgs: Tensor) -> None:
 
 
 def ychg_fused_full(imgs: Tensor) -> Dict[str, Tensor]:
-    """Both steps, one thread per whole column (CUDA), or plain on the CPU."""
+    """Both steps over whole columns (CUDA), or plain on the CPU."""
     _check(imgs)
     if imgs.device.type == "cpu":
         return ychg_fused_full_plain(imgs)

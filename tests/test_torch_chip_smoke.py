@@ -58,6 +58,7 @@ REHEARSAL = textwrap.dedent("""
     cs.SCENE_HYPEREDGES, cs.SCENE_BLOCK_H = 50, 16
     cs.FRONTEND_RES, cs.FRONTEND_BIG_RES = 32, 64
     cs.PACKED_SNOW_RES = 64
+    cs.SCAN_MAX_SEGMENTS, cs.SCAN_LONG_SEGMENTS = 8, (5, 9)
     cs.BULK_TILE_H, cs.BULK_STACK = 32, 2
     cs.RESUME_H, cs.RESUME_W, cs.RESUME_TILE_H = 64, 96, 16
     cs.card_line = lambda: "CPU rehearsal, 0 W"
@@ -157,3 +158,8 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert "time: ccl passes [8, 64, 64] uint8: local " in out.stdout
     assert "time: ccl passes [1, 64, 64] uint8: local " in out.stdout
     assert "% of the whole op" in out.stdout
+    for label in ("int64", "uint64"):
+        assert (f"exact: Engine() on a {label} (2, 300, 517) mask equals it "
+                "on its low 32 bits") in out.stdout
+    assert "ychg_fused_full against ychg_fused_splith" in out.stdout
+    assert out.stdout.count("C entry point alone") == 4

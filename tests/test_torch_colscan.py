@@ -32,6 +32,7 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ychg_colscan as kc  # noqa: E402
+from test_torch_fused import DECOMP_WIDTHS, model_full  # noqa: E402
 from ychg_invariants import SUMMARY_FIELDS  # noqa: E402
 
 DTYPES = [np.uint8, np.bool_, np.int32, np.float32, np.int16]
@@ -93,6 +94,33 @@ def test_splith_plain_matches_full_plain():
     for block_h in (1, 7, 32, 96, 1000):
         assert_same(kc.colscan_splith_plain(img, block_h),
                     kc.colscan_full_plain(img).numpy(), str(block_h))
+
+
+@pytest.mark.parametrize("addr", [0, 1, 4, 8])
+@pytest.mark.parametrize("w", DECOMP_WIDTHS)
+def test_model_colscan_matches_plain(w, addr):
+    """``ychg_colscan_full``'s decomposition (``test_torch_fused.model_full``
+    without the halo): declared constants, heights no segment count
+    divides, H = 0 and 1, base addresses 1, 4 and 8 bytes off 16."""
+    for h in (0, 1, 37, 300):
+        img = _mask((h, w), w + h + addr)
+        want = kc.colscan_full_plain(torch.from_numpy(img)).numpy()
+        for dtype in (np.uint8, np.int32):
+            got = model_full(img[None].astype(dtype), addr=addr, fused=False)
+            assert_same(got["runs"], want, f"{h} {dtype}")
+
+
+def test_model_colscan_long_alternating_columns():
+    """Segments far past a byte lane's 255 runs, and past the 16-bit lanes'
+    flush period at a small one."""
+    img = np.zeros((3000, 24), np.uint8)
+    img[::2] = 1
+    img[::7, 3] = 0
+    want = kc.colscan_full_plain(torch.from_numpy(img)).numpy()
+    for kw in ({}, {"lanes": 4, "threads": 4}, {"lanes": 2, "threads": 2,
+                                                 "chunk": 10, "pair_chunks": 3}):
+        assert_same(model_full(img[None], fused=False, **kw)["runs"], want,
+                    str(kw))
 
 
 # -------------------------------------------------------------- kernels.ops

@@ -8,6 +8,7 @@ wrappers' refusals, and that importing builds nothing.
 """
 
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -209,3 +210,205 @@ def test_library_path_names_source_hash():
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("libychg_fused-") and path.suffix == ".so"
     assert path == _build.library_path("ychg_fused")
+
+
+def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
+    """The sources include ``csrc/*.cuh``: editing a header in a copy of
+    ``csrc/`` gives both libraries that include it another name."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.library_path(n) for n in ("ychg_fused", "ychg_colscan")}
+    header = csrc / "ychg_scan.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name, path in before.items():
+        assert _build.library_path(name) != path, name
+        assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+# --------------------------------------- the full-column kernels' decomposition
+#
+# A NumPy model of how ``csrc/ychg_scan.cuh`` splits the work of
+# ``ychg_fused_full`` and ``ychg_colscan_full`` (the kernels themselves run
+# only on the card): the vector width chosen from the base address and the
+# row pitch, tiles of ``lanes`` vectors, ``threads / lanes`` row segments a
+# tile each entered with the row above it, uint8 counts in byte lanes
+# flushed every ``chunk`` rows into 16-bit lanes that are flushed every
+# ``pair_chunks`` chunks, and step 2 from the tile's own counts and its halo
+# column. It runs at the constants the header declares and at small ones.
+
+SCAN_HEADER = Path(kf.__file__).resolve().parent / "csrc" / "ychg_scan.cuh"
+SCAN = {k: int(v) for k, v in re.findall(
+    r"constexpr int (k\w+) = (\d+);", SCAN_HEADER.read_text())}
+H100_SMS = 132
+
+
+def model_vec_bytes(addr, w, itemsize):
+    """The widest vector (16 down to the item size) dividing both the base
+    address and the row pitch, as ``vec_bytes`` picks it."""
+    a = addr | (w * itemsize)
+    v = SCAN["kMaxVecBytes"]
+    while v > itemsize and a % v:
+        v >>= 1
+    return v
+
+
+def model_choose_lanes(b, nvec, sms):
+    """``choose_lanes``: the widest tile whose blocks reach half of the
+    SMs, else the narrowest."""
+    lanes = SCAN["kMaxLanes"]
+    while lanes > SCAN["kMinLanes"] and b * -(-nvec // lanes) < sms // 2:
+        lanes >>= 1
+    return lanes
+
+
+def _segment_counts(rising, itemsize, chunk, pair_chunks):
+    """Per-column counts of one segment's (rows, W) rising edges as the
+    kernel keeps them: uint8 in byte lanes (wrapping at 256) a chunk, then
+    16-bit lanes (wrapping at 65536) spilled to int every pair_chunks
+    chunks; 32-bit types count in 32 bits."""
+    rows, w = rising.shape
+    if itemsize != 1:
+        return rising.sum(0, dtype=np.int64)
+    total = np.zeros(w, np.int64)
+    pair = np.zeros(w, np.uint16)
+    for k, r in enumerate(range(0, rows, chunk)):
+        acc = rising[r:r + chunk].sum(0).astype(np.uint8)
+        pair = (pair + acc).astype(np.uint16)
+        if (k + 1) % pair_chunks == 0 and r + chunk < rows:
+            total += pair
+            pair[:] = 0
+    return total + pair
+
+
+def model_full(imgs, *, addr=0, fused=True, sms=H100_SMS, lanes=None,
+               threads=None, chunk=None, pair_chunks=None):
+    """The kernel's decomposition of a (B, H, W) stack: a dict of the
+    ``ychg_fused_full`` fields (or ``{"runs"}`` for ``ychg_colscan_full``,
+    B = 1, no halo). ``addr`` is the base address modulo 16."""
+    threads = threads or SCAN["kScanThreads"]
+    chunk = chunk or SCAN["kChunk"]
+    pair_chunks = pair_chunks or SCAN["kPairChunks"]
+    x = kf.foreground(torch.from_numpy(imgs)).numpy()
+    b, h, w = x.shape
+    itemsize = 1 if imgs.dtype in (np.uint8, np.bool_) else 4
+    vec = model_vec_bytes(addr, w, itemsize)
+    cols = vec // itemsize                 # columns of one vector
+    nvec = w * itemsize // vec
+    lanes = lanes or model_choose_lanes(b, nvec, sms)
+    segs = threads // lanes
+    seg = -(-h // segs)
+    tile_w = lanes * cols                  # columns of one block
+    c0s = np.arange(tile_w, w, tile_w)     # tiles that have a halo column
+    runs = np.zeros((b, w), np.int64)
+    halo = np.zeros((b, len(c0s)), np.int64)
+    for i in range(b):
+        for s in range(segs):
+            r0 = s * seg
+            rows = min(seg, h - r0)
+            if rows <= 0:
+                continue
+            blk = x[i, r0:r0 + rows]
+            above = x[i, r0 - 1:r0] if r0 else np.zeros((1, w), bool)
+            rising = blk & ~np.concatenate([above, blk[:-1]])
+            runs[i] += _segment_counts(rising, itemsize, chunk, pair_chunks)
+            # the halo column, counted by the tile's first lane as it goes
+            halo[i] += rising[:, c0s - 1].sum(0)
+    if not fused:
+        return {"runs": runs[0].astype(np.int32)}
+    left = np.concatenate([np.zeros((b, 1), np.int64), runs[:, :-1]], 1)
+    left[:, c0s] = halo                    # the tile's own count, not runs
+    delta = runs - left
+    births = np.maximum(delta, 0)
+    return {"runs": runs.astype(np.int32), "transitions": delta != 0,
+            "births": births.astype(np.int32),
+            "deaths": np.maximum(-delta, 0).astype(np.int32),
+            "n_hyperedges": births.sum(1).astype(np.int32),
+            "n_transitions": (delta != 0).sum(1).astype(np.int32)}
+
+
+def test_scan_header_declares_the_model_constants():
+    assert SCAN["kScanThreads"] == 1024 and SCAN["kMaxVecBytes"] == 16
+    assert SCAN["kMinLanes"] <= SCAN["kMaxLanes"] <= 32
+    assert SCAN["kChunk"] <= 255 and SCAN["kChunk"] % SCAN["kUnroll"] == 0
+    assert SCAN["kChunk"] * SCAN["kPairChunks"] < 1 << 16
+
+
+@pytest.mark.parametrize("addr,w,itemsize,want", [
+    (0, 8192, 1, 16), (0, 21000, 1, 8), (0, 516, 1, 4), (0, 514, 1, 2),
+    (0, 513, 1, 1), (1, 512, 1, 1), (4, 512, 1, 4), (8, 512, 1, 8),
+    (0, 128, 4, 16), (0, 130, 4, 8), (0, 129, 4, 4), (4, 128, 4, 4),
+    (8, 128, 4, 8)])
+def test_model_vector_width(addr, w, itemsize, want):
+    assert model_vec_bytes(addr, w, itemsize) == want
+
+
+@pytest.mark.parametrize("b,w,vec,want", [
+    (8, 8192, 16, 32), (1, 8192, 16, 4), (1, 21000, 8, 32), (2, 8192, 16, 8),
+    (1, 1, 1, 4)])
+def test_model_lanes_at_the_main_shapes(b, w, vec, want):
+    """The lanes csrc/ychg_scan.cuh's header names for the serving batch,
+    the lone mask and the scene, on 132 SMs."""
+    assert model_choose_lanes(b, w // vec, H100_SMS) == want
+
+
+DECOMP_WIDTHS = [1, 5, 15, 16, 17, 24, 511, 512, 513]
+
+
+@pytest.mark.parametrize("addr", [0, 1, 4, 8])
+@pytest.mark.parametrize("w", DECOMP_WIDTHS)
+def test_model_fused_matches_plain(w, addr):
+    """Declared constants; heights that no segment count divides, H = 0 and
+    1; base addresses 1, 4 and 8 bytes off a 16-byte boundary."""
+    for h in (0, 1, 37, 300):
+        imgs = _stack((2, h, w), w + h + addr)
+        want = kf.ychg_fused_full_plain(torch.from_numpy(imgs))
+        for sms in (H100_SMS, 3):
+            assert_dicts_same({k: torch.from_numpy(np.asarray(v)) for k, v in
+                               model_full(imgs, addr=addr, sms=sms).items()},
+                              {k: v.numpy() for k, v in want.items()})
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.bool_])
+@pytest.mark.parametrize("addr", [0, 4, 8])
+def test_model_fused_dtypes(dtype, addr):
+    imgs = _stack((2, 41, 130), addr, dtype=dtype)
+    if dtype == np.float32:
+        imgs[0, ::3] *= np.float32(1e-39)  # subnormals: background
+    want = kf.ychg_fused_full_plain(torch.from_numpy(imgs))
+    assert_dicts_same({k: torch.from_numpy(np.asarray(v)) for k, v in
+                       model_full(imgs, addr=addr).items()},
+                      {k: v.numpy() for k, v in want.items()})
+
+
+@pytest.mark.parametrize("lanes,threads,chunk,pair_chunks", [
+    (4, 8, 3, 2), (2, 8, 5, 3), (1, 3, 2, 1), (8, 16, 4, 2)])
+def test_model_fused_small_tiles_and_flushes(lanes, threads, chunk,
+                                             pair_chunks):
+    """Small tiles, segment counts and flush periods, so that every flush
+    and every halo runs at a small size."""
+    for w, addr in [(17, 0), (40, 8), (33, 1)]:
+        imgs = _stack((2, 50, w), w * lanes, p=0.6)
+        imgs[1, ::2, :5] = 1
+        imgs[1, 1::2, :5] = 0
+        want = kf.ychg_fused_full_plain(torch.from_numpy(imgs))
+        got = model_full(imgs, addr=addr, lanes=lanes, threads=threads,
+                         chunk=chunk, pair_chunks=pair_chunks)
+        assert_dicts_same({k: torch.from_numpy(np.asarray(v))
+                           for k, v in got.items()},
+                          {k: v.numpy() for k, v in want.items()})
+
+
+def test_model_byte_lanes_need_their_flush():
+    """A column of alternating rows has a run every other row: past 510
+    rows without a flush its byte lane wraps, and the model (like the
+    kernel) would count wrong. At the declared chunk it does not."""
+    imgs = np.zeros((1, 1100, 16), np.uint8)
+    imgs[0, ::2] = 1
+    want = kf.ychg_fused_full_plain(torch.from_numpy(imgs))["runs"].numpy()
+    ok = model_full(imgs, lanes=4, threads=4)["runs"]
+    np.testing.assert_array_equal(ok, want)
+    wrapped = model_full(imgs, lanes=4, threads=4, chunk=1024)["runs"]
+    assert not np.array_equal(wrapped, want)
