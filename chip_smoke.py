@@ -36,7 +36,29 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      canonical re-ranking alone and its three passes apart (local, seams,
      final), the C entry points alone of ychg_fused_full and
      ychg_colscan_full on the lone mask, and ychg_fused_full beside
-     ychg_fused_splith on the serving batch and the scene. The two packed
+     ychg_fused_splith on the serving batch, the scene and the tall strip
+     (1 x 40960 x 8192 uint8: five serving masks stacked along the track,
+     which the engine's rule sends to split-H), and the two step-1 kernels
+     on the tall strip. ychg_fused_splith is also held at block_h 1, 3,
+     252, 253 and above H, with H not a multiple of block_h, ranges
+     shorter than the block's segment count, bases 0, 1, 4 and 8 bytes off
+     16, four dtypes and float32 subnormals, one range whose segments pass
+     a byte lane's and one whose segments pass a 16-bit lane's flush, and
+     on the tall strip. The two-kernel path's batch entry
+     (``ychg_colscan_analyze``: a step-1 launch on either route and
+     ychg_diff's second instantiation, which also writes the cut vertices
+     and the totals, a mask, in one host call) is held to its plain
+     version and to ``core.ychg.analyze`` on both routes on every
+     kernel_cases and split-H case, the serving batch, the scene and the
+     tall strip; it is timed through ``kops.analyze_batch`` and as its C
+     call alone on the serving batch, its step 2 as a programmatic
+     dependent launch (what it runs) against plain stream order (the C
+     twin ``ychg_colscan_analyze_stream_order``, a diagnostic), and that
+     step-2 kernel alone, on the device, from a torch.profiler trace: the
+     ychg_diff row of the kernels line, since the main path runs ychg_diff
+     in this form. The standalone ychg_diff (``ops.transitions``), off the
+     main path, is timed through its wrapper (median and quartiles of 101
+     samples) and as its C entry point. The two packed
      kernels are held to their plain versions on the packed form of H = 1
      to 9, W = 1 and ragged masks, all-one columns, checkerboards,
      serpentines, four dtypes, float32 subnormals, the 4096^2 snowfield of
@@ -49,7 +71,7 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      ``Engine().analyze_batch`` on 8 x 8192^2 uint8 masks for ychg (must
      resolve to ``fused``), ccl and denoise (must resolve to ``cuda``),
      ``Engine(EngineConfig(backend="cuda"))`` for ychg (the paper's two
-     kernels, two launches a mask), and denoise on float32 copies with 1%
+     kernels, two launches a mask from one host call), and denoise on float32 copies with 1%
      impulse pixels, each equal to ``backend="torch"``;
      ``Engine().run_pipeline(["denoise", "ychg"])`` equal to the two
      stages run one after the other; the service's cold, warm and cached
@@ -59,7 +81,7 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      the cached pass dispatches nothing; the device batches and stage
      seconds of each are printed); the overload burst; the 21000^2 scene
      through the full-column and split-H routes of both ychg kernel
-     backends, as op ``ccl`` (4,124,319 components) and through
+     backends and of the batch entry, as op ``ccl`` (4,124,319 components) and through
      ``packed_analyze`` and ``packed_colscan``, each equal to
      ``Engine().analyze``; the scene tier: the scene written to a ``.npy``
      and run as a memmap granule by ``BulkJob`` (2048-row strips in stacks
@@ -112,6 +134,9 @@ OPS_PER_PIXEL = 3          # ychg: compare, and-not, add
 PACKED_OPS_PER_BYTE = 5
 PACK_OPS_PER_PIXEL = 3     # pack_rows: compare, shift, add
 DIFF_OPS_PER_COLUMN = 5    # ychg_diff: subtract, compare, two max, negate
+# ychg_diff's batch-entry instantiation: the same, the doubled cut vertex
+# and the two sums of the totals
+FINISH_OPS_PER_COLUMN = DIFF_OPS_PER_COLUMN + 3
 # denoise: 8 + 7 adds, 8 squares, 1 FMA (2), 2 multiplies by 1/9, sqrt,
 # subtract, abs, multiply by TAU, compare
 DENOISE_FLOPS_PER_PIXEL = 32
@@ -123,6 +148,7 @@ CCL_OPS_PER_PIXEL = 12
 SERVE_RES, SERVE_BATCH = 8192, 8
 SCENE_RES, SCENE_HYPEREDGES = 21000, 4_124_319
 SCENE_BLOCK_H = 2048       # EngineConfig.block_h default
+TALL_MASKS = 5             # the tall strip: serving masks stacked along H
 PACKED_SNOW_RES = 4096     # benchmarks/run.py::bench_kernel_packed's mask
 BULK_TILE_H, BULK_STACK = 2048, 4   # the scene leg's strips and stacks
 # the kill-and-resume job: two synthetic granules of (H, W), in strips
@@ -273,8 +299,9 @@ def max_abs_err(got: dict, want: dict, label: str) -> int:
     return worst
 
 
-def time_ms(fn, samples: int = 15, reps: int = 5) -> float:
-    """Median over ``samples`` of the CUDA-event time of ``reps`` calls / reps."""
+def time_samples(fn, samples: int = 15, reps: int = 5) -> list:
+    """``samples`` CUDA-event times (ms) of ``reps`` calls / reps, after a
+    warm-up."""
     import torch
 
     for _ in range(2):
@@ -290,7 +317,37 @@ def time_ms(fn, samples: int = 15, reps: int = 5) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+    return times
+
+
+def time_ms(fn, samples: int = 15, reps: int = 5) -> float:
+    """Median over ``samples`` of the CUDA-event time of ``reps`` calls / reps."""
+    return statistics.median(time_samples(fn, samples, reps))
+
+
+def kernel_device_ms(fn, names: tuple, calls: int = 20) -> tuple[float, int]:
+    """Mean device time (ms) of one launch of the CUDA kernel whose name
+    holds any of ``names`` (demangled or mangled), read from a
+    torch.profiler trace of ``calls`` calls of ``fn``; and the launches the
+    trace saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        if any(n in e.key for n in names):
+            total_us += getattr(e, "device_time_total", None) or getattr(
+                e, "cuda_time_total", 0.0)
+            launches += e.count
+    check(launches > 0 and total_us > 0,
+          f"torch.profiler saw no device time of {names[0]}")
+    return total_us / launches / 1e3, launches
 
 
 def _bound(nbytes: float, t_ops: float) -> tuple[float, str, int]:
@@ -321,6 +378,15 @@ def bound_diff(runs) -> tuple[float, str, int]:
     w = runs.shape[0]
     return _bound(w * 4 + w * (1 + 4 + 4),
                   DIFF_OPS_PER_COLUMN * w / PEAK_INT32_OPS_PER_S)
+
+
+def bound_finish(runs) -> tuple[float, str, int]:
+    """The same for the batch entry's step-2 kernel on one mask's (W,)
+    runs: the runs read once; the cut vertices, births and deaths (int32),
+    the transitions (bool) and the two int32 totals written once."""
+    w = runs.shape[-1]
+    return _bound(w * 4 + w * (4 + 1 + 4 + 4) + 2 * 4,
+                  FINISH_OPS_PER_COLUMN * w / PEAK_INT32_OPS_PER_S)
 
 
 def bound_denoise(x) -> tuple[float, str, int]:
@@ -628,6 +694,51 @@ def scan_cases(np, torch):
     return cases
 
 
+def splith_cases(np, torch):
+    """(label, cuda stack, block_h) for ``ychg_fused_splith`` at the
+    constants of ``csrc/ychg_scan.cuh``: block_h 1, 3, 252, 253 and above H
+    with H = 600 (a multiple of none of them), so every range is shorter
+    than the block's 32 to 256 segments; uint8, bool, int32 and float32
+    with subnormals; bases 0, 1, 4 and 8 bytes off a 16-byte boundary; the
+    serving widths 8200 and 8197; and one range of 256 x 547 alternating
+    rows whose 256 segments each pass a byte lane's flush."""
+    rng = np.random.default_rng(20130618)
+    dev = DEV
+
+    def rand(shape, p=0.5):
+        return torch.from_numpy((rng.random(shape) < p).astype(
+            np.uint8)).to(dev)
+
+    cases = []
+    x = rand((2, 600, 700))
+    sub = torch.from_numpy(subnormal_values(np, rng, (2, 600, 258))).to(dev)
+    for block_h in (1, 3, 252, 253, 4096):
+        cases += [(f"uint8 (2, 600, 700)", x, block_h),
+                  (f"bool (2, 600, 700)", x.bool(), block_h),
+                  (f"int32 (2, 600, 700)", x.to(torch.int32), block_h),
+                  (f"float32 subnormals (2, 600, 258)", sub, block_h)]
+    for dtype, width in ((torch.uint8, 1), (torch.int32, 4)):
+        flat = rand(2 * 601 * 512 + 16).to(dtype)
+        name = str(dtype).split(".")[-1]
+        for off in (0, 1, 4, 8):
+            if off % width:
+                continue
+            n = off // width
+            cases.append((f"{name} base {off} B off 16 (2, 601, 512)",
+                          flat[n:n + 2 * 601 * 512].view(2, 601, 512), 253))
+    for w in (8200, 8197):
+        y = rand((2, 1000, w))
+        cases += [(f"uint8 (2, 1000, {w})", y, 3),
+                  (f"uint8 (2, 1000, {w})", y, 252)]
+    tall = torch.zeros((1, SCAN_MAX_SEGMENTS * 547, 16), dtype=torch.uint8,
+                       device=dev)
+    tall[:, ::2] = 1
+    tall[:, ::7, 3] = 0
+    cases.append((f"alternating rows {tuple(tall.shape)}", tall,
+                  tall.shape[1]))
+    return cases
+
+
 def wide_int_cases(np):
     """(label, host (B, H, W) 64-bit mask, its low 32 bits) for the engine:
     2**32 and -2**32 (low bits 0), 2**40 + 1 and 2**64 - 1 (low bits not
@@ -704,6 +815,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ccl as kccl
     from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ychg_colscan as kc
     from repro_torch.kernels import ychg_fused as kf
     from repro_torch.kernels import ychg_packed as kp
@@ -821,6 +933,20 @@ def main() -> int:
                                        f"ychg_diff [{label}]"))
         return runs, diff
 
+    def compare_analyze(label, x, block_h):
+        """The two-kernel batch entry on both routes against its plain
+        version and ``core.ychg.analyze``."""
+        ref = ychg.analyze(x)
+        ref = {f: getattr(ref, f) for f in fields}
+        for route in (None, block_h):
+            got = kc.launch_analyze(x, block_h=route)
+            what = f"ychg_colscan_analyze [{label}, block_h={route}]"
+            err = max_abs_err(got, kc.analyze_plain(x, route), what)
+            max_abs_err(got, ref, f"{what} vs core.ychg.analyze")
+            tally("ychg_diff", err)
+            tally("ychg_colscan_full" if route is None
+                  else "ychg_colscan_splith", err)
+
     def compare_packed(label, img):
         """Both packed kernels on the packing of one (H, W) mask, against
         their plain versions and, for the fused one, against the reference
@@ -842,10 +968,18 @@ def main() -> int:
     for label, x, block_h in kernel_cases(np, torch, modis):
         compare_full(label, x)
         compare_splith(label, x, block_h)
+        compare_analyze(label, x, block_h)
         for i in range(x.shape[0]):
             compare_colscan(f"{label} [{i}]", x[i], block_h)
+    for label, x, block_h in splith_cases(np, torch):
+        compare_splith(label, x, block_h)
+        compare_analyze(label, x, block_h)
     for label, x in scan_cases(np, torch):
         compare_full(label, x)
+        if label.startswith("alternating rows, segments of"):
+            # one range of the whole column: its segments pass the byte
+            # lanes' and the 16-bit lanes' flushes
+            compare_splith(label, x, x.shape[1])
         for i in range(min(x.shape[0], 2)):
             tally("ychg_colscan_full", max_abs_err(
                 {"runs": kc.launch_full(x[i])},
@@ -895,8 +1029,15 @@ def main() -> int:
     serve_stack = torch.from_numpy(np.stack(serve_masks[:SERVE_BATCH])).to(DEV)
     float_stack = torch.from_numpy(np.stack(float_masks)).to(DEV)
     scene_stack = torch.from_numpy(scene).to(DEV)[None]
+    tall_stack = serve_stack[:TALL_MASKS].reshape(
+        1, TALL_MASKS * SERVE_RES, SERVE_RES)
     compare_full("serving batch", serve_stack)
     compare_splith("serving batch", serve_stack, SCENE_BLOCK_H)
+    compare_analyze("serving batch", serve_stack, SCENE_BLOCK_H)
+    tall_label = f"tall strip {tuple(tall_stack.shape)}"
+    compare_full(tall_label, tall_stack)
+    compare_splith(tall_label, tall_stack, SCENE_BLOCK_H)
+    compare_analyze(tall_label, tall_stack, SCENE_BLOCK_H)
     for i in range(SERVE_BATCH):
         compare_colscan(f"serving batch [{i}]", serve_stack[i], SCENE_BLOCK_H)
     compare_denoise("serving batch", serve_stack, False)
@@ -914,6 +1055,13 @@ def main() -> int:
               f"{name}: scene gives {got} hyperedges, want {SCENE_HYPEREDGES}")
     compare_full("21000^2 scene", scene_stack)
     compare_splith("21000^2 scene", scene_stack, SCENE_BLOCK_H)
+    for route in (None, SCENE_BLOCK_H):
+        got = int(kc.launch_analyze(scene_stack,
+                                    block_h=route)["n_hyperedges"][0])
+        check(got == SCENE_HYPEREDGES,
+              f"ychg_colscan_analyze (block_h={route}): scene gives {got} "
+              f"hyperedges, want {SCENE_HYPEREDGES}")
+    compare_analyze("21000^2 scene", scene_stack, SCENE_BLOCK_H)
     _, diff = compare_colscan("21000^2 scene", scene_stack[0], SCENE_BLOCK_H)
     for name, runs in [
             ("ychg_colscan_full", kc.launch_full(scene_stack[0])),
@@ -964,6 +1112,7 @@ def main() -> int:
     lone, scene_img = serve_stack[0], scene_stack[0]
     lone_stack = serve_stack[:1]
     lone_runs = kc.launch_full(lone)
+    tall_img = tall_stack[0]
     scene_packed, lone_packed = kp.pack_rows(scene_img), kp.pack_rows(lone)
     for name, x, run, plain, bound_fn, plain_samples in [
             ("ychg_fused_full", serve_stack,
@@ -974,6 +1123,8 @@ def main() -> int:
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
             ("ychg_fused_full", scene_stack,
              lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
+            ("ychg_fused_full", tall_stack,
+             lambda x: kf.launch_full(x), kf.ychg_fused_full_plain, bound, 10),
             ("ychg_fused_splith", scene_stack,
              lambda x: kf.launch_splith(x, block_h=SCENE_BLOCK_H),
              lambda x: kf.ychg_fused_splith_plain(x, SCENE_BLOCK_H), bound,
@@ -982,16 +1133,26 @@ def main() -> int:
              lambda x: kf.launch_splith(x, block_h=SCENE_BLOCK_H),
              lambda x: kf.ychg_fused_splith_plain(x, SCENE_BLOCK_H), bound,
              10),
+            ("ychg_fused_splith", tall_stack,
+             lambda x: kf.launch_splith(x, block_h=SCENE_BLOCK_H),
+             lambda x: kf.ychg_fused_splith_plain(x, SCENE_BLOCK_H), bound,
+             10),
             # the two-kernel path runs one image a launch
             ("ychg_colscan_full", lone, kc.launch_full,
              kc.colscan_full_plain, bound_colscan, 10),
             ("ychg_colscan_full", scene_img, kc.launch_full,
+             kc.colscan_full_plain, bound_colscan, 10),
+            ("ychg_colscan_full", tall_img, kc.launch_full,
              kc.colscan_full_plain, bound_colscan, 10),
             ("ychg_colscan_splith", scene_img,
              lambda x: kc.launch_splith(x, block_h=SCENE_BLOCK_H),
              lambda x: kc.colscan_splith_plain(x, SCENE_BLOCK_H),
              bound_colscan, 10),
             ("ychg_colscan_splith", lone,
+             lambda x: kc.launch_splith(x, block_h=SCENE_BLOCK_H),
+             lambda x: kc.colscan_splith_plain(x, SCENE_BLOCK_H),
+             bound_colscan, 10),
+            ("ychg_colscan_splith", tall_img,
              lambda x: kc.launch_splith(x, block_h=SCENE_BLOCK_H),
              lambda x: kc.colscan_splith_plain(x, SCENE_BLOCK_H),
              bound_colscan, 10),
@@ -1065,16 +1226,38 @@ def main() -> int:
                                               stream), reps=50)
             extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
             del out
+        if name == "ychg_fused_splith" and x is serve_stack:
+            # the C entry point alone on preallocated outputs (the runs and
+            # totals accumulate over the calls; only the time is read)
+            lib = _build.load("ychg_fused", kf._SIGNATURES)
+            ptrs = kf._out_ptrs(kf.launch_splith(x, block_h=SCENE_BLOCK_H))
+            stream = torch.cuda.current_stream().cuda_stream
+            row["entry_point_ms"] = time_ms(
+                lambda: lib.ychg_fused_splith(x.data_ptr(),
+                                              kf._KERNEL_DTYPES[x.dtype],
+                                              *x.shape, SCENE_BLOCK_H, *ptrs,
+                                              stream), reps=20)
+            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
         if name == "ychg_diff":
+            # the standalone kernel (ops.transitions), off the main path: a
+            # host-bound wrapper, so more samples and their quartiles
+            row["kernel"] = "diff_kernel<false>, off the main path"
+            wrapper = time_samples(lambda: run(x), samples=101, reps=10)
+            row["ms"] = statistics.median(wrapper)
+            q = statistics.quantiles(wrapper, n=4)
+            row["ms_quartiles"] = [q[0], q[2]]
+            row["bound_share"] = row["bound_ms"] / row["ms"]
             # the C entry point alone on preallocated outputs: the wrapper's
-            # checks and three allocations taken away
+            # checks and its allocation taken away
             lib = _build.load("ychg_colscan", kc._SIGNATURES)
             ptrs = [v.data_ptr() for v in kc.launch_diff(x).values()]
             stream = torch.cuda.current_stream().cuda_stream
             row["entry_point_ms"] = time_ms(
                 lambda: lib.ychg_diff(x.data_ptr(), x.shape[0], *ptrs,
                                       stream), reps=50)
-            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
+            extra = (f"; median of 101 samples, quartiles "
+                     f"{q[0]:.4f}-{q[2]:.4f} ms; C entry point alone "
+                     f"{row['entry_point_ms']:.4f} ms; off the main path")
         if name == "ychg_packed_fused" and x is lone_packed:
             # the C entry point alone on preallocated outputs (the totals
             # accumulate over the calls; only the time is read)
@@ -1113,10 +1296,71 @@ def main() -> int:
     print(f"time: ychg_fused_full against ychg_fused_splith (block_h "
           f"{SCENE_BLOCK_H}), the engine's two fused routes: serving batch "
           f"{full[0]['ms']:.4f} ms against {split[1]['ms']:.4f} ms, scene "
-          f"{full[2]['ms']:.4f} ms against {split[0]['ms']:.4f} ms on {card}",
+          f"{full[2]['ms']:.4f} ms against {split[0]['ms']:.4f} ms, tall "
+          f"strip {full[3]['ms']:.4f} ms against {split[2]['ms']:.4f} ms on "
+          f"{card}", flush=True)
+    step1 = (timings["ychg_colscan_full"][2], timings["ychg_colscan_splith"][2])
+    print(f"time: the two step-1 routes on the tall strip "
+          f"{step1[0]['shape']}: ychg_colscan_full {step1[0]['ms']:.4f} ms, "
+          f"ychg_colscan_splith (block_h {SCENE_BLOCK_H}) "
+          f"{step1[1]['ms']:.4f} ms (bound {step1[0]['bound_ms']:.4f} ms) on "
+          f"{card}", flush=True)
+
+    # the two-kernel path's batch entry on the serving batch: through its
+    # wrapper and as its C call alone on preallocated outputs, its step 2
+    # as a programmatic dependent launch against plain stream order (the C
+    # entry point and its diagnostic twin, in turns), and that step-2
+    # kernel's own device time, read from a torch.profiler trace
+    lib = _build.load("ychg_colscan", kc._SIGNATURES)
+    out = kc.launch_analyze(serve_stack)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (serve_stack.data_ptr(), 0, *serve_stack.shape, 0,
+            *[out[k].data_ptr() for k in kc.ANALYZE_FIELDS], stream)
+    pdl = lambda: lib.ychg_colscan_analyze(*args)  # noqa: E731
+    ordered = lambda: lib.ychg_colscan_analyze_stream_order(*args)  # noqa: E731
+    turns = [time_ms(f, reps=10) for f in (pdl, ordered, ordered, pdl)]
+    batch_entry = {
+        "shape": list(serve_stack.shape), "launches": 2 * SERVE_BATCH,
+        "wrapper_ms": time_ms(lambda: kops.analyze_batch(serve_stack)),
+        "entry_point_ms": turns[0],
+        "pdl_ms": [turns[0], turns[3]],
+        "stream_order_ms": [turns[1], turns[2]]}
+    print(f"time: ychg_colscan_analyze {batch_entry['shape']} uint8 "
+          f"({2 * SERVE_BATCH} launches, one host call): through "
+          f"kops.analyze_batch {batch_entry['wrapper_ms']:.4f} ms, its C call "
+          f"alone {batch_entry['entry_point_ms']:.4f} ms on {card}",
           flush=True)
+    print(f"pdl: ychg_colscan_analyze's C call on {batch_entry['shape']}, "
+          f"step 2 as a programmatic dependent launch "
+          + " / ".join(f"{t:.4f}" for t in batch_entry["pdl_ms"])
+          + " ms against plain stream order (ychg_colscan_analyze_stream_order) "
+          + " / ".join(f"{t:.4f}" for t in batch_entry["stream_order_ms"])
+          + f" ms, in turns; {card}", flush=True)
+    # ychg_diff on the main path is this step-2 kernel: its row leads
+    step2 = ("diff_kernel<true>", "diff_kernelILb1E")
+    runs_row = out["runs"][0].clone()
+    b_ms, b_by, b_bytes = bound_finish(runs_row)
+    device_ms, seen = kernel_device_ms(pdl, step2)
+    check(seen == 20 * SERVE_BATCH,
+          f"the trace saw {seen} step-2 launches, want {20 * SERVE_BATCH}")
+    row = {"kernel": "diff_kernel<true>, the batch entry's step 2",
+           "shape": list(runs_row.shape), "dtype": "int32",
+           "ms": device_ms,
+           "stream_order_ms": kernel_device_ms(ordered, step2)[0],
+           "plain_ms": time_ms(lambda: kc.finish_plain(runs_row), reps=1),
+           "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": b_bytes}
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    timings["ychg_diff"].insert(0, row)
+    print(f"time: ychg_diff on the main path ({row['kernel']}) "
+          f"{row['shape']} int32, one mask of the serving batch: "
+          f"{row['ms']:.4f} ms a launch on the device (torch.profiler, "
+          f"{seen} launches; {row['stream_order_ms']:.4f} ms in stream "
+          f"order; plain {row['plain_ms']:.4f} ms, bound "
+          f"{row['bound_ms']:.6f} ms by {b_by} ({b_bytes} B), "
+          f"{100 * row['bound_share']:.1f}% of bound) on {card}", flush=True)
+    del out
     del serve_stack, float_stack, scene_stack, lone, scene_img, lone_runs
-    del lone_stack
+    del lone_stack, tall_stack, tall_img
     del scene_packed, lone_packed
     free()
 
@@ -1481,7 +1725,8 @@ def main() -> int:
         row[name] = statistics.median(times) * 1e3
     print(f"engine: one analyze_batch of the {SERVE_BATCH} x {SERVE_RES}^2 "
           f"serving batch on the card: cuda (two kernels, "
-          f"{2 * SERVE_BATCH} launches) {row['cuda']:.3f} ms, fused (one "
+          f"{2 * SERVE_BATCH} launches from one host call) "
+          f"{row['cuda']:.3f} ms, fused (one "
           f"launch) {row['fused']:.3f} ms (median of 5, host clock); {card}",
           flush=True)
     del x
@@ -1545,6 +1790,8 @@ def main() -> int:
             "shape": main_row["shape"],
             "timings": timings[name],
         })
+        if name == "ychg_diff":
+            kernels[-1]["batch_entry"] = batch_entry
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

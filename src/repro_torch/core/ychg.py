@@ -114,6 +114,35 @@ class YCHGSummary:
     n_transitions: Tensor  # (...,)   int32  number of transition columns
 
 
+# The layout of each YCHGSummary field for a batch of B images W wide.
+FIELD_LAYOUT = {"runs": "int32 plane", "cut_vertices": "int32 plane",
+                "transitions": "bool plane", "births": "int32 plane",
+                "deaths": "int32 plane", "n_hyperedges": "int32 total",
+                "n_transitions": "int32 total"}
+
+
+def zeroed_outputs(fields: tuple[str, ...], b: int, w: int,
+                   device: torch.device) -> dict[str, Tensor]:
+    """The named summary fields for B images W wide, in the order given, as
+    views of one zeroed buffer, laid out as ``FIELD_LAYOUT`` says: an int32
+    plane is (B, W), a bool plane (B, W), an int32 total (B,). The CUDA
+    kernels write into them, and add into the totals (split-H into the
+    runs too)."""
+    by_kind = {kind: [f for f in fields if FIELD_LAYOUT[f] == kind]
+               for kind in ("int32 plane", "int32 total", "bool plane")}
+    planes, totals, flags = by_kind.values()
+    n32 = b * (w * len(planes) + len(totals))
+    buf = torch.zeros(4 * n32 + b * w * len(flags), dtype=torch.uint8,
+                      device=device)
+    i32 = buf[:4 * n32].view(torch.int32)
+    views = dict(zip(planes, i32[:b * w * len(planes)].view(len(planes), b,
+                                                            w)))
+    views.update(zip(totals, i32[b * w * len(planes):].view(len(totals), b)))
+    views.update(zip(flags, buf[4 * n32:].view(torch.bool).view(len(flags), b,
+                                                                w)))
+    return {f: views[f] for f in fields}
+
+
 def analyze(img: Tensor) -> YCHGSummary:
     """Run both steps. img: (..., H, W) mask on any device."""
     runs = column_runs(img)

@@ -8,7 +8,8 @@ batched summary, bit-identical to the op's reference (``engine.ops``).
                                       of ``jax``)
   ychg     fused   yes    cuda, cpu*  cuda (one launch for the whole stack)
   ychg     cuda    no     cuda, cpu*  - (the paper's two kernels, two
-                                      launches an image; explicit only)
+                                      launches an image, one host call a
+                                      stack; explicit only)
   ychg     serial  no     cpu         - (the paper's NumPy CPU baseline)
   ychg     scalar  no     cpu         - (per-pixel loops; tiny images only)
   ccl      torch   yes    cpu, cuda   cpu (``kernels.ccl.labels``)
@@ -61,21 +62,15 @@ def _run_fused(imgs, config: "EngineConfig") -> YCHGSummary:
 
 
 def _run_cuda(imgs, config: "EngineConfig") -> YCHGSummary:
-    """The two-kernel path is single-image: one step-1 and one step-2
-    launch an image, as the JAX package's ``pallas`` backend does."""
-    if imgs.shape[0] == 0:
-        return ychg.analyze(imgs)
-    outs = [
-        kops.analyze(
-            imgs[i],
-            block_w=config.block_w,
-            block_h=config.block_h,
-            vmem_budget=config.stream_vmem_budget,
-        )
-        for i in range(imgs.shape[0])
-    ]
-    return YCHGSummary(**{k: torch.stack([o[k] for o in outs])
-                          for k in outs[0]})
+    """The paper's two kernels: one step-1 and one step-2 launch an image,
+    as the JAX package's ``pallas`` backend makes, all from one host call
+    for the stack into outputs allocated once (``kops.analyze_batch``)."""
+    return YCHGSummary(**kops.analyze_batch(
+        imgs,
+        block_w=config.block_w,
+        block_h=config.block_h,
+        vmem_budget=config.stream_vmem_budget,
+    ))
 
 
 def _run_host(analyze: Callable) -> Callable:

@@ -31,92 +31,32 @@
 //  * Per-image totals: a block reduction, then one int32 atomicAdd per
 //    block. Integer addition is exact in any order, so the totals are
 //    deterministic.
-//  * ychg_fused_splith cuts H into segments of block_h rows, one grid z
-//    index each, one thread a column of a segment. A segment starts `prev`
-//    from the row just above it instead of a carried row, and adds its
-//    partial count into `runs` with atomicAdd. Step 2 and the totals then
-//    run in a second small launch over (B, W), once every segment is in
-//    (chosen over a last-arriving-block counter: it needs no extra zeroed
-//    scratch and no memory fences).
+//  * ychg_fused_splith is the same scan over a range of rows: grid z cuts H
+//    into ranges of block_h rows, the block_h of the API and of the plain
+//    version, and each block scans one range of one tile, its row segments
+//    entered from the image row above, as in ychg_fused_full. Grid (tiles,
+//    B, ceil(H / block_h)); the lanes are chosen as if each (image, range)
+//    pair were an image, so one tall image fills the card. Each block adds
+//    its tile's counts into the zeroed `runs`, one int32 atomicAdd a column.
+//    Step 2 and the totals then run in a second small kernel over (B, W),
+//    once every range is in (chosen over a last-arriving-block counter: it
+//    needs no extra zeroed scratch and no memory fences), launched as a
+//    programmatic dependent launch (ychg_step2.cuh).
 //  * Pixel offsets are 64-bit: 8 x 21000^2 is more than 2^31.
 //
 // Binding: plain C entry points, loaded with ctypes. Each launches on the
-// stream it is given, allocates nothing, and returns cudaGetLastError().
+// stream it is given, allocates nothing, and returns the first launch error.
 // The caller zeroes nh, nt and (for split-H) runs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "ychg_scan.cuh"
+#include "ychg_step2.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // the split-H kernels' blocks
-
-// Step 1 over `rows` rows of one column, starting at p, entered with the
-// foreground bit of the row above (0 at the top of the image).
-template <typename T>
-__device__ __forceinline__ int scan_column(const T* __restrict__ p, int64_t W,
-                                           int64_t rows, int prev) {
-  int runs = 0;
-#pragma unroll 16
-  for (int64_t r = 0; r < rows; ++r) {
-    const int x = foreground(p[r * W]);
-    runs += x & (prev ^ 1);
-    prev = x;
-  }
-  return runs;
-}
-
-// Sums births and transitions over a block of kBlock threads and adds them
-// to the image's totals. Every thread of the block must call it.
-template <int kBlock>
-__device__ __forceinline__ void add_block_totals(int births, int trans,
-                                                 int* nh, int* nt) {
-  constexpr int kWarps = kBlock / 32;
-  __shared__ int s_births[kWarps];
-  __shared__ int s_trans[kWarps];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    births += __shfl_down_sync(0xffffffffu, births, o);
-    trans += __shfl_down_sync(0xffffffffu, trans, o);
-  }
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  if (lane == 0) {
-    s_births[warp] = births;
-    s_trans[warp] = trans;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    births = lane < kWarps ? s_births[lane] : 0;
-    trans = lane < kWarps ? s_trans[lane] : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      births += __shfl_down_sync(0xffffffffu, births, o);
-      trans += __shfl_down_sync(0xffffffffu, trans, o);
-    }
-    if (lane == 0) {
-      if (births) atomicAdd(nh, births);
-      if (trans) atomicAdd(nt, trans);
-    }
-  }
-}
-
-// Step 2 for one column at flat offset o; returns (births, transition).
-__device__ __forceinline__ int2 finish_column(int run, int left, int64_t o,
-                                              uint8_t* __restrict__ trans,
-                                              int* __restrict__ births,
-                                              int* __restrict__ deaths) {
-  const int delta = run - left;
-  const int born = delta > 0 ? delta : 0;
-  const int t = delta != 0;
-  trans[o] = static_cast<uint8_t>(t);  // torch.bool: the byte is 0 or 1
-  births[o] = born;
-  deaths[o] = delta < 0 ? -delta : 0;
-  return make_int2(born, t);
-}
+constexpr int kThreads = 256;  // the split-H step-2 kernel's blocks
 
 // Grid (tiles, B), block (lanes, kScanThreads / lanes): step 1 for one tile
 // of lanes vectors of one image (ychg_scan.cuh), then step 2 and the totals
@@ -131,8 +71,8 @@ fused_full_kernel(const uint8_t* __restrict__ img, int64_t H, int64_t W,
   constexpr int E = V / static_cast<int>(sizeof(T));
   __shared__ ScanTile tile;
   const int64_t b = blockIdx.y;
-  scan_tile<T, V, true>(img + b * H * W * static_cast<int64_t>(sizeof(T)), H,
-                        W, nvec, tile);
+  scan_tile<T, V, true>(img + b * H * W * static_cast<int64_t>(sizeof(T)), 0,
+                        H, W, nvec, tile);
   const int lanes = blockDim.x;
   const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * E;
   int born = 0;
@@ -151,21 +91,30 @@ fused_full_kernel(const uint8_t* __restrict__ img, int64_t H, int64_t W,
   add_block_totals<kScanThreads>(born, changed, nh + b, nt + b);
 }
 
-// Grid (ceil(W / kThreads), B, ceil(H / block_h)): one H segment of one
-// column per thread, its count added into runs (zeroed by the caller).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-splith_scan_kernel(const T* __restrict__ img, int64_t H, int64_t W,
-                   int64_t block_h, int* __restrict__ runs) {
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= W) return;
+// Grid (tiles, B, ceil(H / block_h)), block (lanes, kScanThreads / lanes):
+// step 1 for one tile of lanes vectors over one range of block_h rows of
+// one image (ychg_scan.cuh), its counts added into runs (zeroed by the
+// caller).
+template <typename T, int V>
+__global__ void __launch_bounds__(kScanThreads, 1)
+splith_scan_kernel(const uint8_t* __restrict__ img, int64_t H, int64_t W,
+                   int64_t nvec, int64_t block_h, int* __restrict__ runs) {
+  constexpr int E = V / static_cast<int>(sizeof(T));
+  __shared__ ScanTile tile;
   const int64_t b = blockIdx.y;
-  const int64_t r0 = static_cast<int64_t>(blockIdx.z) * block_h;
-  const int64_t rows = (H - r0 < block_h) ? H - r0 : block_h;
-  const T* p = img + b * H * W + r0 * W + col;
-  const int prev = r0 > 0 ? foreground(p[-W]) : 0;
-  const int part = scan_column(p, W, rows, prev);
-  if (part) atomicAdd(runs + b * W + col, part);
+  const int64_t row0 = static_cast<int64_t>(blockIdx.z) * block_h;
+  const int64_t nrows = H - row0 < block_h ? H - row0 : block_h;
+  scan_tile<T, V, false>(img + b * H * W * static_cast<int64_t>(sizeof(T)),
+                         row0, nrows, W, nvec, tile);
+  const int lanes = blockDim.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * E;
+  int* out = runs + b * W + c0;
+  for (int c = threadIdx.y * lanes + threadIdx.x; c < lanes * E;
+       c += kScanThreads) {
+    if (c0 + c >= W) break;
+    const int part = tile.runs[tile_index<E>(c)];
+    if (part) atomicAdd(out + c, part);
+  }
 }
 
 // Grid (ceil(W / kThreads), B): step 2 and the totals over complete counts.
@@ -177,22 +126,13 @@ splith_finish_kernel(int64_t W, const int* __restrict__ runs,
   const int64_t b = blockIdx.y;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int2 tot = make_int2(0, 0);
+  wait_for_prior_grid();  // every range's counts are in runs
   if (col < W) {
     const int64_t o = b * W + col;
     const int left = col > 0 ? runs[o - 1] : 0;
     tot = finish_column(runs[o], left, o, trans, births, deaths);
   }
   add_block_totals<kThreads>(tot.x, tot.y, nh + b, nt + b);
-}
-
-template <typename T>
-void launch_splith_scan(const void* img, int64_t B, int64_t H, int64_t W,
-                        int64_t block_h, void* runs, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((W + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(B),
-                  static_cast<unsigned>((H + block_h - 1) / block_h));
-  splith_scan_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(img), H, W, block_h, static_cast<int*>(runs));
 }
 
 bool valid_args(int dtype, int64_t B, int64_t H, int64_t W) {
@@ -239,27 +179,31 @@ extern "C" int ychg_fused_splith(const void* img, int dtype, int64_t B,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (H > 0) {
-    switch (dtype) {
-      case kU8:
-        launch_splith_scan<uint8_t>(img, B, H, W, block_h, runs, s);
-        break;
-      case kI32:
-        launch_splith_scan<int32_t>(img, B, H, W, block_h, runs, s);
-        break;
-      case kF32:
-        launch_splith_scan<float>(img, B, H, W, block_h, runs, s);
-        break;
-      default:
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
+    const int isz = itemsize_of(dtype);
+    const int vec = vec_bytes(img, W, isz);
+    const int64_t nvec = W * isz / vec;
+    const int64_t ranges = (H + block_h - 1) / block_h;
+    const int lanes = choose_lanes(B * ranges, nvec, sm_count());
+    const dim3 grid(static_cast<unsigned>((nvec + lanes - 1) / lanes),
+                    static_cast<unsigned>(B), static_cast<unsigned>(ranges));
+    const dim3 block(lanes, kScanThreads / lanes);
+    const bool launched = with_layout(dtype, vec, [&](auto layout) {
+      using T = typename decltype(layout)::type;
+      splith_scan_kernel<T, decltype(layout)::vec><<<grid, block, 0, s>>>(
+          static_cast<const uint8_t*>(img), H, W, nvec, block_h,
+          static_cast<int*>(runs));
+    });
+    if (!launched) return static_cast<int>(cudaErrorInvalidValue);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const dim3 grid(static_cast<unsigned>((W + kThreads - 1) / kThreads),
                   static_cast<unsigned>(B));
-  splith_finish_kernel<<<grid, kThreads, 0, s>>>(
-      W, static_cast<const int*>(runs), static_cast<uint8_t*>(trans),
+  const cudaError_t err = launch_dependent(
+      splith_finish_kernel, grid, dim3(kThreads), s, W,
+      static_cast<const int*>(runs), static_cast<uint8_t*>(trans),
       static_cast<int*>(births), static_cast<int*>(deaths),
       static_cast<int*>(nh), static_cast<int*>(nt));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,10 @@
-// The full-column step-1 scan shared by ychg_fused_full (ychg_fused.cu) and
-// ychg_colscan_full (ychg_colscan.cu), for Hopper (sm_90a): per-column
-// maximal-run counts of a (H, W) mask, runs[j] = the number of rows i where
-// x[i][j] is foreground and x[i-1][j] is not (x[-1] = 0).
+// The step-1 scan shared by ychg_fused_full and ychg_fused_splith
+// (ychg_fused.cu) and ychg_colscan_full (ychg_colscan.cu), for Hopper
+// (sm_90a): per-column maximal-run counts of a (H, W) mask over a range of
+// its rows, runs[j] = the number of rows i of the range where x[i][j] is
+// foreground and x[i-1][j] is not (x[-1] = 0). The full-column kernels scan
+// all H rows in one block a tile; ychg_fused_splith gives each block one
+// range of block_h rows (grid z) and sums the ranges' counts.
 //
 // What bounds it: device-memory bytes. A pixel is read once and costs a few
 // integer operations; the outputs are a few bytes a column.
@@ -26,9 +29,10 @@
 //    exponent bits: +-0 and subnormals are background, NaN and inf are not.
 //  * Several threads a column. A block is kScanThreads threads: `lanes`
 //    vectors across (blockDim.x) times kScanThreads / lanes row segments
-//    (blockDim.y). Each segment is a contiguous run of rows, entered with
-//    the foreground flags of the row just above it, so no segment depends
-//    on another. The segments of one warp hold the same columns and are
+//    (blockDim.y) of its row range. Each segment is a contiguous run of
+//    rows, entered with the foreground flags of the image row just above
+//    it (none above image row 0), so no segment depends on another and a
+//    range needs no halo row. The segments of one warp hold the same columns and are
 //    summed by shuffles, then one lane a column adds into shared memory
 //    (integer sums: exact in any order). No atomics on device memory.
 //  * The lanes are chosen at launch (choose_lanes) from B, the vectors a
@@ -36,7 +40,11 @@
 //    SMs (8 x 8192^2 uint8: 32 lanes, 512 B a row, 256 rows a segment, 128
 //    blocks; the 21000^2 scene: 32 lanes of 8 B, 83 blocks), narrower ones
 //    for one smaller image (1 x 8192^2: 4 lanes, 64 B, 32 rows a segment,
-//    128 blocks). One block a SM: 32 warps, at most 64 registers a thread
+//    128 blocks). ychg_fused_splith counts each (image, row range) pair as
+//    an image: choose_lanes(B * ceil(H / block_h), ...), so the scene's 11
+//    ranges of 2048 rows take 32 lanes, 83 tiles x 11 = 913 blocks of 64
+//    rows a segment, and 8 x 8192^2 takes 32 lanes, 16 x 8 x 4 = 512
+//    blocks. One block a SM: 32 warps, at most 64 registers a thread
 //    (__launch_bounds__(kScanThreads, 1)).
 //  * Step 2 needs the run count of the column left of a tile, which another
 //    block owns; blocks run in no order and none waits for another. With
@@ -173,13 +181,15 @@ struct SegmentCounts {
   }
 };
 
-// Scans a (H, W) image whose first byte is `img` for the block's tile of
-// `lanes` vectors (blockIdx.x), and leaves its counts in `tile`. `nvec`
-// vectors of V bytes make a row. Every thread of the block must call it;
-// it returns after a __syncthreads(), with `tile` complete.
+// Scans rows [row0, row0 + nrows) of a (H, W) image whose first byte is
+// `img` for the block's tile of `lanes` vectors (blockIdx.x), and leaves
+// its counts in `tile`. `nvec` vectors of V bytes make a row. Every thread
+// of the block must call it; it returns after a __syncthreads(), with
+// `tile` complete.
 template <typename T, int V, bool kHalo>
 __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
-                                          int64_t H, int64_t W, int64_t nvec,
+                                          int64_t row0, int64_t nrows,
+                                          int64_t W, int64_t nvec,
                                           ScanTile& tile) {
   constexpr int kWords = vec_words<V>();
   constexpr int E = V / static_cast<int>(sizeof(T));
@@ -194,9 +204,11 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
 
   const int64_t pitch = W * static_cast<int64_t>(sizeof(T));
   const int64_t vec = static_cast<int64_t>(blockIdx.x) * lanes + lx;
-  const int64_t seg = (H + segs - 1) / segs;
-  const int64_t r0 = threadIdx.y * seg;
-  int64_t rows = H - r0 < seg ? H - r0 : seg;
+  const int64_t seg = (nrows + segs - 1) / segs;
+  // this segment's first image row
+  const int64_t r0 = row0 + threadIdx.y * seg;
+  const int64_t range_end = row0 + nrows;
+  int64_t rows = range_end - r0 < seg ? range_end - r0 : seg;
   if (vec >= nvec || rows < 0) rows = 0;
   const int64_t col0 = vec * E;  // this thread's first column
   // the column left of the tile, scanned by the tile's first lane
@@ -333,8 +345,9 @@ inline int sm_count() {
   return n > 0 ? n : 1;
 }
 
-// Lanes of a block for B images of `nvec` vectors a row: the widest tile
-// whose blocks still reach half of the SMs, else the narrowest. A wide tile
+// Lanes of a block for B images (for split-H, B (image, row range) pairs)
+// of `nvec` vectors a row: the widest tile whose blocks still reach half of
+// the SMs, else the narrowest. A wide tile
 // reads whole 128-byte lines and fewer entry rows, and a block draws more
 // than its share of the memory rate when some SMs are idle: on the H100 a
 // wide tile on half the SMs beat a narrow one on all of them.

@@ -1,8 +1,12 @@
 """Public wrappers over the yCHG kernels.
 
-  ``colscan_runs``, ``transitions``, ``analyze``  the paper's two-kernel
-      path for one (H, W) mask (``kernels.ychg_colscan``): step 1, then
-      step 2, two launches;
+  ``colscan_runs``, ``transitions``  the paper's two kernels for one
+      (H, W) mask (``kernels.ychg_colscan``): step 1, step 2;
+  ``analyze_batch``, ``analyze``  the paper's two-kernel path for a
+      (B, H, W) stack or one (H, W) mask: one host call, a step-1 and a
+      step-2 launch a mask, step 2 also writing the cut vertices and the
+      per-image totals (``kernels.ychg_colscan.ychg_colscan_analyze``), so
+      no PyTorch op runs on a mask's result;
   ``analyze_fused``  both steps for a (B, H, W) stack in one kernel call
       (``kernels.ychg_fused``).
 
@@ -59,6 +63,30 @@ def transitions(runs: Tensor) -> tuple[Tensor, Tensor, Tensor]:
     return out["transitions"], out["births"], out["deaths"]
 
 
+def analyze_batch(
+    imgs: Tensor,
+    *,
+    block_w: int = 128,
+    block_h: int = 2048,
+    vmem_budget: int | None = None,
+) -> Dict[str, Tensor]:
+    """Both steps for a (B, H, W) stack on the two-kernel path, one host
+    call for the stack; the seven fields of ``core.ychg.analyze`` as a dict
+    of (B, W) planes and (B,) int32 totals.
+
+    Step 1 takes the route ``colscan_runs`` takes for one mask of the
+    stack. A non-contiguous input is copied first.
+    """
+    if vmem_budget is None:
+        vmem_budget = _FULL_COLUMN_VMEM_BUDGET
+    if imgs.ndim != 3:
+        raise ValueError(f"expected a (B, H, W) stack, got "
+                         f"{tuple(imgs.shape)}")
+    split = imgs.shape[1] * block_w > vmem_budget
+    return _c.ychg_colscan_analyze(imgs.contiguous(),
+                                   block_h=block_h if split else None)
+
+
 def analyze(
     img: Tensor,
     *,
@@ -66,20 +94,13 @@ def analyze(
     block_h: int = 2048,
     vmem_budget: int | None = None,
 ) -> Dict[str, Tensor]:
-    """Both steps for one (H, W) mask, one kernel each; the seven fields of
-    ``core.ychg.analyze`` as a dict, the totals summed as int32."""
-    runs = colscan_runs(img, block_w=block_w, block_h=block_h,
+    """Both steps for one (H, W) mask, one kernel each (``analyze_batch``
+    with B = 1); the seven fields of ``core.ychg.analyze`` as a dict."""
+    if img.ndim != 2:
+        raise ValueError(f"expected an (H, W) mask, got {tuple(img.shape)}")
+    out = analyze_batch(img[None], block_w=block_w, block_h=block_h,
                         vmem_budget=vmem_budget)
-    trans, births, deaths = transitions(runs)
-    return {
-        "runs": runs,
-        "cut_vertices": 2 * runs,
-        "transitions": trans,
-        "births": births,
-        "deaths": deaths,
-        "n_hyperedges": torch.sum(births, dtype=torch.int32),
-        "n_transitions": torch.sum(trans, dtype=torch.int32),
-    }
+    return {k: v[0] for k, v in out.items()}
 
 
 def _empty_summary(w: int, device: torch.device) -> YCHGSummary:

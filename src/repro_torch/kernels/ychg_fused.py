@@ -8,10 +8,11 @@ version:
                          whole columns, each cut into row segments that the
                          warps of one block scan with wide loads along the
                          row and sum (``csrc/ychg_scan.cuh``).
-  ``ychg_fused_splith``  replaces ``_fused_streamed_kernel``: the columns are
-                         cut into ``block_h``-row segments, scanned in
-                         parallel and summed, then step 2 runs in a second
-                         small launch. One counted launch is that pair.
+  ``ychg_fused_splith``  replaces ``_fused_streamed_kernel``: the same scan
+                         with the columns cut into ``block_h``-row ranges
+                         (grid z), each range's counts added into the runs,
+                         then step 2 in a second small launch right behind
+                         it. One counted launch is that pair.
 
 Each wrapper takes a contiguous (B, H, W) tensor and returns a dict of
 ``runs``, ``transitions``, ``births``, ``deaths`` (B, W) and
@@ -34,7 +35,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.ychg import foreground
+from repro_torch.core.ychg import foreground, zeroed_outputs
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -45,6 +46,9 @@ _KERNEL_DTYPES = {torch.uint8: 0, torch.bool: 0, torch.int32: 1,
 _MAX_GRID_YZ = 65535
 
 LAUNCHES: Dict[str, int] = {"ychg_fused_full": 0, "ychg_fused_splith": 0}
+# the outputs, in the C entry points' order
+_FIELDS = ("runs", "transitions", "births", "deaths", "n_hyperedges",
+           "n_transitions")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
@@ -155,23 +159,8 @@ def _kernel_input(imgs: Tensor) -> tuple[Tensor, int]:
     return imgs, code
 
 
-def _outputs(b: int, w: int, device: torch.device,
-             zero_runs: bool) -> Dict[str, Tensor]:
-    i32 = dict(dtype=torch.int32, device=device)
-    return {
-        "runs": (torch.zeros if zero_runs else torch.empty)((b, w), **i32),
-        "transitions": torch.empty((b, w), dtype=torch.bool, device=device),
-        "births": torch.empty((b, w), **i32),
-        "deaths": torch.empty((b, w), **i32),
-        "n_hyperedges": torch.zeros((b,), **i32),
-        "n_transitions": torch.zeros((b,), **i32),
-    }
-
-
 def _out_ptrs(out: Dict[str, Tensor]) -> list[int]:
-    return [out[k].data_ptr() for k in ("runs", "transitions", "births",
-                                        "deaths", "n_hyperedges",
-                                        "n_transitions")]
+    return [out[k].data_ptr() for k in _FIELDS]
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -185,7 +174,7 @@ def launch_full(imgs: Tensor) -> Dict[str, Tensor]:
     b, h, w = x.shape
     if b > _MAX_GRID_YZ:
         raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a launch")
-    out = _outputs(b, w, x.device, zero_runs=False)
+    out = zeroed_outputs(_FIELDS, b, w, x.device)
     if b == 0 or w == 0:  # nothing to launch; a 0 grid is invalid
         return out
     lib = _build.load("ychg_fused", _SIGNATURES)
@@ -207,7 +196,7 @@ def launch_splith(imgs: Tensor, *, block_h: int = 2048) -> Dict[str, Tensor]:
     if b > _MAX_GRID_YZ or -(-h // block_h) > _MAX_GRID_YZ:
         raise ValueError(f"(batch {b}, {-(-h // block_h)} H segments) "
                          f"exceeds {_MAX_GRID_YZ} a grid dimension")
-    out = _outputs(b, w, x.device, zero_runs=True)
+    out = zeroed_outputs(_FIELDS, b, w, x.device)
     if b == 0 or w == 0:
         return out
     lib = _build.load("ychg_fused", _SIGNATURES)

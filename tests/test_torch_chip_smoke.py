@@ -63,6 +63,8 @@ REHEARSAL = textwrap.dedent("""
     cs.RESUME_H, cs.RESUME_W, cs.RESUME_TILE_H = 64, 96, 16
     cs.card_line = lambda: "CPU rehearsal, 0 W"
     cs.ptx_float_ops = lambda source: {"add.rn.ftz.f32": 1}
+    # no trace of a card here: the step-2 kernel's launches as if seen
+    cs.kernel_device_ms = lambda fn, names, calls=20: (0.001, calls * 8)
     _build.build = lambda names: {n: 0.0 for n in names}
 
     class NoLibrary:  # the C entry points timed alone do nothing here
@@ -95,6 +97,19 @@ REHEARSAL = textwrap.dedent("""
     kc.ychg_colscan_splith = lambda x, block_h=2048: kc.launch_splith(
         x, block_h=block_h)
     kc.ychg_diff = lambda r: kc.launch_diff(r)
+
+    def launch_analyze(x, block_h=None):
+        b = x.shape[0]
+        if block_h is None:
+            kc.LAUNCHES["ychg_colscan_full"] += b
+        elif x.shape[1]:
+            kc.LAUNCHES["ychg_colscan_splith"] += b
+        kc.LAUNCHES["ychg_diff"] += b
+        return kc.analyze_plain(x, block_h)
+
+    kc.launch_analyze = launch_analyze
+    kc.ychg_colscan_analyze = lambda x, block_h=None: kc.launch_analyze(
+        x, block_h=block_h)
     denoise.launch = counted(denoise.LAUNCHES, "denoise",
                              denoise.denoise_plain)
     denoise.denoise_kernel = lambda s: denoise.DenoiseSummary(
@@ -162,4 +177,25 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         assert (f"exact: Engine() on a {label} (2, 300, 517) mask equals it "
                 "on its low 32 bits") in out.stdout
     assert "ychg_fused_full against ychg_fused_splith" in out.stdout
-    assert out.stdout.count("C entry point alone") == 4
+    assert out.stdout.count("C entry point alone") == 5
+    assert "time: ychg_fused_splith [1, 320, 64] uint8" in out.stdout
+    assert "time: ychg_fused_full [1, 320, 64] uint8" in out.stdout
+    assert "the two step-1 routes on the tall strip [320, 64]" in out.stdout
+    assert ("time: ychg_colscan_analyze [8, 64, 64] uint8 (16 launches, one "
+            "host call): through kops.analyze_batch") in out.stdout
+    assert "pdl: ychg_colscan_analyze's C call on [8, 64, 64]" in out.stdout
+    assert ("against plain stream order (ychg_colscan_analyze_stream_order)"
+            in out.stdout)
+    assert ("time: ychg_diff on the main path (diff_kernel<true>, the batch "
+            "entry's step 2) [64] int32") in out.stdout
+    assert "16 launches from one host call" in out.stdout
+    diff = next(k for k in kernels if k["name"] == "ychg_diff")
+    assert diff["batch_entry"]["launches"] == 16
+    assert len(diff["batch_entry"]["pdl_ms"]) == 2
+    assert [t["kernel"] for t in diff["timings"]] == [
+        "diff_kernel<true>, the batch entry's step 2",
+        "diff_kernel<false>, off the main path"]
+    assert diff["shape"] == [64] and diff["ms"] == 0.001
+    split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
+    assert [t["shape"] for t in split["timings"]] == [
+        [1, 120, 120], [8, 64, 64], [1, 320, 64]]

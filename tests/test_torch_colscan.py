@@ -27,11 +27,13 @@ from repro.kernels.ychg_colscan import (  # noqa: E402
     transitions_pallas,
 )
 from repro_torch.core import serial  # noqa: E402
+from repro_torch.core import ychg as tychg  # noqa: E402
 from repro_torch.engine import Engine, EngineConfig, registry  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import ychg_colscan as kc  # noqa: E402
+from repro_torch.kernels import ychg_fused as kf  # noqa: E402
 from test_torch_fused import DECOMP_WIDTHS, model_full  # noqa: E402
 from ychg_invariants import SUMMARY_FIELDS  # noqa: E402
 
@@ -171,6 +173,112 @@ def test_ops_routing_matches_jax(monkeypatch):
         assert_same(got, want)
 
 
+# ------------------------------------------- the two-kernel path a batch
+
+
+@pytest.mark.parametrize("b", [0, 1, 3])
+@pytest.mark.parametrize("budget", [4 * 1024 * 1024, 1])
+@pytest.mark.parametrize("w", [131, 8])
+def test_analyze_batch_plain_matches_jax_pallas(b, budget, w):
+    """The batch entry's plain version (``analyze_plain``), directly and
+    through ``kops.analyze_batch``, against the JAX ``pallas`` backend in
+    interpret mode: B = 0, 1 and 3, ragged W, both routes."""
+    stack = _mask((b, 40, w), b + w + budget % 7)
+    cfg = dict(block_h=16, stream_vmem_budget=budget)
+    want = JEngine(JConfig(backend="pallas", **cfg)).analyze_batch(
+        stack).to_host()
+    split = budget < 40 * 128
+    plain = kc.analyze_plain(torch.from_numpy(stack), 16 if split else None)
+    got = tops.analyze_batch(torch.from_numpy(stack), block_h=16,
+                             vmem_budget=budget)
+    assert tuple(got) == tuple(plain) == kc.ANALYZE_FIELDS
+    for f in SUMMARY_FIELDS:
+        assert_same(plain[f], want[f], f)
+        assert_same(got[f], want[f], f)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32, np.int16])
+def test_analyze_plain_dtypes_match_jax_pallas(dtype):
+    stack = _mask((2, 33, 70), 12, dtype=dtype)
+    if dtype == np.float32:
+        stack[1, ::2] *= np.float32(1e-39)  # subnormals: background
+    for budget, block_h in ((1 << 30, None), (1, 5)):
+        want = JEngine(JConfig(backend="pallas", block_h=5,
+                               stream_vmem_budget=budget)).analyze_batch(
+            stack).to_host()
+        got = kc.analyze_plain(torch.from_numpy(stack), block_h)
+        for f in SUMMARY_FIELDS:
+            assert_same(got[f], want[f], f)
+
+
+def test_analyze_batch_routes_as_colscan_runs(monkeypatch):
+    """One route for the whole stack, chosen by ``colscan_runs``'s rule,
+    and one call of the batch entry (no call a mask)."""
+    calls = []
+    real = kc.ychg_colscan_analyze
+
+    def spy(imgs, *, block_h=None):
+        calls.append(block_h)
+        return real(imgs, block_h=block_h)
+
+    monkeypatch.setattr(kc, "ychg_colscan_analyze", spy)
+    stack = torch.from_numpy(_mask((3, 70, 150), 13))
+    for budget, want in ((1, 32), (70 * 128 - 1, 32), (70 * 128, None),
+                         (1 << 30, None)):
+        calls.clear()
+        tops.analyze_batch(stack, block_h=32, vmem_budget=budget)
+        assert calls == [want], budget
+    calls.clear()
+    Engine(EngineConfig(backend="cuda", block_h=32, stream_vmem_budget=1),
+           device="cpu").analyze_batch(stack.numpy())
+    assert calls == [32]
+
+
+def test_analyze_is_the_batch_entry_with_one_mask():
+    img = torch.from_numpy(_mask((45, 77), 14))
+    one = tops.analyze(img, block_h=8, vmem_budget=1)
+    batch = tops.analyze_batch(img[None], block_h=8, vmem_budget=1)
+    assert tuple(one) == kc.ANALYZE_FIELDS
+    for k in kc.ANALYZE_FIELDS:
+        assert_same(one[k], batch[k][0].numpy(), k)
+        assert one[k].shape == batch[k].shape[1:]
+
+
+@pytest.mark.parametrize("fields", [kc.ANALYZE_FIELDS, kf._FIELDS])
+@pytest.mark.parametrize("b,w", [(0, 5), (1, 1), (3, 17)])
+def test_outputs_are_views_of_one_zeroed_buffer(b, w, fields):
+    """The batch entry's outputs (and the fused kernels', on their six
+    fields): one allocation, every field zeroed (the kernels add into the
+    totals, split-H into the runs), the dtypes and shapes of
+    ``core.ychg.analyze``, no two fields overlapping."""
+    out = tychg.zeroed_outputs(fields, b, w, torch.device("cpu"))
+    assert tuple(out) == fields
+    base = out["runs"].untyped_storage().data_ptr()
+    spans = []
+    for k, v in out.items():
+        want = (b,) if k.startswith("n_") else (b, w)
+        assert v.shape == want and v.is_contiguous(), k
+        assert v.dtype == (torch.bool if k == "transitions" else torch.int32)
+        assert v.untyped_storage().data_ptr() == base, k
+        assert not v.any(), k
+        start = v.data_ptr()
+        spans.append((start, start + v.numel() * v.element_size()))
+    spans.sort()
+    assert all(a[1] <= b_[0] for a, b_ in zip(spans, spans[1:]))
+
+
+def test_field_layout_matches_core_analyze():
+    """``FIELD_LAYOUT``, from which the kernels' output buffer is cut, says
+    what ``core.ychg.analyze`` gives for every summary field."""
+    got = tychg.analyze(torch.from_numpy(_mask((3, 9, 13), 21)))
+    assert tuple(tychg.FIELD_LAYOUT) == kc.ANALYZE_FIELDS
+    for k, kind in tychg.FIELD_LAYOUT.items():
+        v = getattr(got, k)
+        dtype, shape = kind.split()
+        assert v.dtype == {"int32": torch.int32, "bool": torch.bool}[dtype], k
+        assert v.shape == {"plane": (3, 13), "total": (3,)}[shape], k
+
+
 def test_ops_non_contiguous_input_is_copied():
     img = _mask((40, 30), 4)
     view = torch.from_numpy(img).t()
@@ -288,6 +396,14 @@ def test_wrappers_refuse_bad_input():
         kc.ychg_colscan_full(torch.zeros((2, 3), device="meta"))
     with pytest.raises(ValueError):
         tops.colscan_runs(torch.zeros((1, 2, 3)))
+    with pytest.raises(ValueError, match=r"\(B, H, W\) stack"):
+        kc.ychg_colscan_analyze(torch.zeros((2, 3), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="block_h"):
+        kc.ychg_colscan_analyze(torch.zeros((1, 4, 4)), block_h=0)
+    with pytest.raises(ValueError):
+        tops.analyze_batch(torch.zeros((2, 3)))
+    with pytest.raises(ValueError):
+        tops.analyze(torch.zeros((1, 2, 3)))
 
 
 def test_kernel_path_refuses_without_cuda():
@@ -300,6 +416,8 @@ def test_kernel_path_refuses_without_cuda():
             launch(x)
     with pytest.raises(ValueError, match="CUDA tensor"):
         kc.launch_diff(torch.zeros(4, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kc.launch_analyze(torch.zeros((1, 4, 4), dtype=torch.uint8))
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA device"):

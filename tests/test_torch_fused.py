@@ -228,16 +228,18 @@ def test_library_path_hashes_the_headers(tmp_path, monkeypatch):
         assert _build.library_path(name).name.startswith(f"lib{name}-")
 
 
-# --------------------------------------- the full-column kernels' decomposition
+# --------------------------------------- the scan kernels' decomposition
 #
 # A NumPy model of how ``csrc/ychg_scan.cuh`` splits the work of
-# ``ychg_fused_full`` and ``ychg_colscan_full`` (the kernels themselves run
-# only on the card): the vector width chosen from the base address and the
-# row pitch, tiles of ``lanes`` vectors, ``threads / lanes`` row segments a
-# tile each entered with the row above it, uint8 counts in byte lanes
-# flushed every ``chunk`` rows into 16-bit lanes that are flushed every
-# ``pair_chunks`` chunks, and step 2 from the tile's own counts and its halo
-# column. It runs at the constants the header declares and at small ones.
+# ``ychg_fused_full``, ``ychg_fused_splith`` and ``ychg_colscan_full`` (the
+# kernels themselves run only on the card): the vector width chosen from the
+# base address and the row pitch, tiles of ``lanes`` vectors, ``threads /
+# lanes`` row segments a tile (of the whole column, or for split-H of each
+# ``block_h``-row range) each entered with the image row above it, uint8
+# counts in byte lanes flushed every ``chunk`` rows into 16-bit lanes that
+# are flushed every ``pair_chunks`` chunks, and step 2 from the tile's own
+# counts and its halo column (full-column) or from the summed counts
+# (split-H). It runs at the constants the header declares and at small ones.
 
 SCAN_HEADER = Path(kf.__file__).resolve().parent / "csrc" / "ychg_scan.cuh"
 SCAN = {k: int(v) for k, v in re.findall(
@@ -283,11 +285,12 @@ def _segment_counts(rising, itemsize, chunk, pair_chunks):
     return total + pair
 
 
-def model_full(imgs, *, addr=0, fused=True, sms=H100_SMS, lanes=None,
-               threads=None, chunk=None, pair_chunks=None):
+def model_full(imgs, *, addr=0, fused=True, block_h=None, sms=H100_SMS,
+               lanes=None, threads=None, chunk=None, pair_chunks=None):
     """The kernel's decomposition of a (B, H, W) stack: a dict of the
-    ``ychg_fused_full`` fields (or ``{"runs"}`` for ``ychg_colscan_full``,
-    B = 1, no halo). ``addr`` is the base address modulo 16."""
+    ``ychg_fused_full`` fields, of the ``ychg_fused_splith`` fields when
+    ``block_h`` is given, or ``{"runs"}`` for ``ychg_colscan_full`` (B = 1,
+    no halo). ``addr`` is the base address modulo 16."""
     threads = threads or SCAN["kScanThreads"]
     chunk = chunk or SCAN["kChunk"]
     pair_chunks = pair_chunks or SCAN["kPairChunks"]
@@ -297,25 +300,32 @@ def model_full(imgs, *, addr=0, fused=True, sms=H100_SMS, lanes=None,
     vec = model_vec_bytes(addr, w, itemsize)
     cols = vec // itemsize                 # columns of one vector
     nvec = w * itemsize // vec
-    lanes = lanes or model_choose_lanes(b, nvec, sms)
+    # row ranges: grid z of split-H, else the whole column
+    ranges = ([(0, h)] if block_h is None else
+              [(r, min(block_h, h - r)) for r in range(0, h, block_h)])
+    # split-H counts each (image, range) pair as an image
+    lanes = lanes or model_choose_lanes(b * len(ranges), nvec, sms)
     segs = threads // lanes
-    seg = -(-h // segs)
     tile_w = lanes * cols                  # columns of one block
-    c0s = np.arange(tile_w, w, tile_w)     # tiles that have a halo column
+    halo_tiles = block_h is None and fused
+    c0s = np.arange(tile_w, w, tile_w) if halo_tiles else np.arange(0)
     runs = np.zeros((b, w), np.int64)
     halo = np.zeros((b, len(c0s)), np.int64)
     for i in range(b):
-        for s in range(segs):
-            r0 = s * seg
-            rows = min(seg, h - r0)
-            if rows <= 0:
-                continue
-            blk = x[i, r0:r0 + rows]
-            above = x[i, r0 - 1:r0] if r0 else np.zeros((1, w), bool)
-            rising = blk & ~np.concatenate([above, blk[:-1]])
-            runs[i] += _segment_counts(rising, itemsize, chunk, pair_chunks)
-            # the halo column, counted by the tile's first lane as it goes
-            halo[i] += rising[:, c0s - 1].sum(0)
+        for row0, nrows in ranges:
+            seg = -(-nrows // segs)
+            for s in range(segs):
+                r0 = row0 + s * seg        # the segment's first image row
+                rows = min(seg, row0 + nrows - r0)
+                if rows <= 0:
+                    break
+                blk = x[i, r0:r0 + rows]
+                above = x[i, r0 - 1:r0] if r0 else np.zeros((1, w), bool)
+                rising = blk & ~np.concatenate([above, blk[:-1]])
+                runs[i] += _segment_counts(rising, itemsize, chunk,
+                                           pair_chunks)
+                # the halo column, counted by the tile's first lane as it goes
+                halo[i] += rising[:, c0s - 1].sum(0)
     if not fused:
         return {"runs": runs[0].astype(np.int32)}
     left = np.concatenate([np.zeros((b, 1), np.int64), runs[:, :-1]], 1)
@@ -412,3 +422,85 @@ def test_model_byte_lanes_need_their_flush():
     np.testing.assert_array_equal(ok, want)
     wrapped = model_full(imgs, lanes=4, threads=4, chunk=1024)["runs"]
     assert not np.array_equal(wrapped, want)
+
+
+# ----------------------------------------------- the split-H decomposition
+
+SPLITH_BLOCK_H = [1, 3, 252, 253, 1 << 20]
+
+
+def _as_dicts(got, want):
+    return ({k: torch.from_numpy(np.asarray(v)) for k, v in got.items()},
+            {k: np.asarray(v) for k, v in want.items()})
+
+
+@pytest.mark.parametrize("b,h,w,vec,block_h,want", [
+    (1, 21000, 21000, 8, 2048, 32), (8, 8192, 8192, 16, 2048, 32),
+    (1, 40960, 8192, 16, 2048, 32), (1, 8192, 8192, 16, 2048, 16),
+    (1, 8192, 8192, 16, 1 << 20, 4)])
+def test_model_splith_lanes_at_the_main_shapes(b, h, w, vec, block_h, want):
+    """The lanes csrc/ychg_scan.cuh's header names for split-H on 132 SMs:
+    each (image, range) pair counts as an image, so the scene's 11 ranges
+    and the serving batch's 32 pairs take 32 lanes."""
+    assert model_choose_lanes(b * -(-h // block_h), w // vec, H100_SMS) == want
+
+
+@pytest.mark.parametrize("addr", [0, 1, 4, 8])
+@pytest.mark.parametrize("block_h", SPLITH_BLOCK_H)
+def test_model_splith_matches_plain(block_h, addr):
+    """Declared constants: H not a multiple of block_h, fewer rows in a
+    range than the block has segments (every range here), one range at
+    least H tall, H = 0 and 1, bases 1, 4 and 8 bytes off 16."""
+    for h, w in ((0, 17), (1, 24), (37, 130), (600, 33)):
+        imgs = _stack((2, h, w), h + w + addr)
+        want = kf.ychg_fused_splith_plain(torch.from_numpy(imgs), block_h)
+        for sms in (H100_SMS, 3):
+            assert_dicts_same(*_as_dicts(
+                model_full(imgs, addr=addr, block_h=block_h, sms=sms),
+                {k: v.numpy() for k, v in want.items()}))
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.bool_, np.int32, np.float32])
+@pytest.mark.parametrize("block_h", SPLITH_BLOCK_H)
+def test_model_splith_matches_streamed_interpret(dtype, block_h):
+    """The model at the declared constants against the JAX streamed kernel
+    in interpret mode and the plain version, four dtypes, float32 with
+    subnormals (background)."""
+    h = 37 if block_h < 8 else 600
+    imgs = _stack((2, h, 130), block_h + h, dtype=dtype)
+    if dtype == np.float32:
+        imgs[0, ::3] *= np.float32(1e-39)
+    got = model_full(imgs, block_h=block_h)
+    assert_dicts_same(*_as_dicts(got, fused_analyze_streamed(
+        jnp.asarray(imgs), block_h=min(block_h, 1024), interpret=True)))
+    assert_dicts_same(*_as_dicts(got, {
+        k: v.numpy() for k, v in kf.ychg_fused_splith_plain(
+            torch.from_numpy(imgs), block_h).items()}))
+
+
+@pytest.mark.parametrize("block_h", [1, 3, 5, 50])
+@pytest.mark.parametrize("lanes,threads,chunk,pair_chunks", [
+    (4, 8, 3, 2), (2, 8, 5, 3), (1, 3, 2, 1), (8, 16, 4, 2)])
+def test_model_splith_small_tiles_and_flushes(lanes, threads, chunk,
+                                              pair_chunks, block_h):
+    """Small tiles, segment counts and flush periods, so that a range cut
+    into segments, the flushes within a segment and the seams between
+    ranges all run at a small size; against the JAX streamed kernel."""
+    imgs = _stack((2, 50, 40), lanes * threads + block_h, p=0.6)
+    imgs[1, ::2, :5] = 1
+    imgs[1, 1::2, :5] = 0
+    got = model_full(imgs, addr=8, block_h=block_h, lanes=lanes,
+                     threads=threads, chunk=chunk, pair_chunks=pair_chunks)
+    assert_dicts_same(*_as_dicts(got, fused_analyze_streamed(
+        jnp.asarray(imgs), block_h=block_h, interpret=True)))
+
+
+def test_model_splith_enters_each_range_from_the_image_row_above():
+    """Entering a range's first segment with nothing above it (the in-range
+    offset tested instead of the image row) counts a run that crosses the
+    seam twice; the model, like the kernel, does not."""
+    imgs = np.ones((1, 20, 16), np.uint8)
+    want = kf.ychg_fused_splith_plain(torch.from_numpy(imgs), 7)
+    got = model_full(imgs, block_h=7, lanes=4, threads=8)
+    assert_dicts_same(*_as_dicts(got, {k: v.numpy() for k, v in want.items()}))
+    assert (got["runs"] == 1).all()
