@@ -63,10 +63,14 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      to 9, W = 1 and ragged masks, all-one columns, checkerboards,
      serpentines, four dtypes, float32 subnormals, the 4096^2 snowfield of
      ``benchmarks/run.py::bench_kernel_packed`` and the scene, and the
-     fused one also to ``core.ychg.analyze`` on the unpacked mask; they
-     are timed on the packed scene and the packed 1 x 8192^2 mask, and
-     ``pack_rows`` (torch ops) alone and as a share of ``packed_analyze``
-     on the scene;
+     fused one also to ``core.ychg.analyze`` on the unpacked mask; and on
+     masks built packed: every vector width of a packed row, bases 1 to 8
+     bytes off 16, Hp = 0 and 1, W = 1, W at and past a tile edge, and
+     0x55 columns whose segments pass a byte lane's and a 16-bit lane's
+     flush. They are timed on the packed scene and the packed 1 x 8192^2
+     mask through their wrappers, on the device (a torch.profiler trace)
+     and as their C entry points, and ``pack_rows`` (torch ops) alone and
+     as a share of ``packed_analyze`` on the scene;
   4. the main path, with every launch counter set to 0 just before it:
      ``Engine().analyze_batch`` on 8 x 8192^2 uint8 masks for ychg (must
      resolve to ``fused``), ccl and denoise (must resolve to ``cuda``),
@@ -797,6 +801,50 @@ def packed_cases(np, torch, modis):
     return cases
 
 
+# the packed scan (csrc/ychg_packed.cu): at most 256 row segments a column
+# (1024 threads, at least 4 lanes, in any tiling it takes); a byte lane
+# holds 63 packed rows of 4 runs (it is flushed every kPackedChunk = 60), a
+# 16-bit lane 16,383
+PACKED_MAX_SEGMENTS = 256
+PACKED_LONG_SEGMENTS = (70, 16_400)
+
+
+def packed_row_cases(np, torch):
+    """(label, cuda (Hp, W) packed mask) for the packed kernels, built
+    packed: every vector width of a packed row (W mod 16 = 0, 8, 4, 2 and
+    1), contiguous views whose base is 1 to 8 bytes off a 16-byte
+    boundary, Hp = 0 and 1, W = 1, W at and one vector or one byte past a
+    tile edge (64-byte tiles of 4 lanes below 528 vectors a row, and
+    21120 = 165 tiles of 8 lanes x 16 B), and columns of 0x55 (4 runs a
+    byte) whose every segment passes a byte lane's flush (70 packed rows
+    a segment even at 256 segments) or a 16-bit lane's (16,400: 65,600
+    runs), four byte lanes a column word."""
+    rng = np.random.default_rng(20130619)
+    dev = DEV
+
+    def rand(shape):
+        return torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)
+                                ).to(dev)
+
+    cases = []
+    for w in (512, 520, 516, 514, 513, 8200, 8197):
+        cases.append((f"packed (67, {w})", rand((67, w))))
+    flat = rand(57 * 512 + 16)
+    for off in range(1, 9):
+        cases.append((f"packed base {off} B off 16 (57, 512)",
+                      flat[off:off + 57 * 512].view(57, 512)))
+    for hp, w in ((0, 300), (1, 300), (1000, 1), (40, 4096), (40, 4112),
+                  (40, 4097), (40, 21120), (40, 21136)):
+        cases.append((f"packed ({hp}, {w})", rand((hp, w))))
+    for rows in PACKED_LONG_SEGMENTS:
+        col = torch.full((PACKED_MAX_SEGMENTS * rows, 4), 0x55,
+                         dtype=torch.uint8, device=dev)
+        col[::7, 2] = 0x15
+        cases.append((f"packed 0x55 columns, segments of {rows} "
+                      f"{tuple(col.shape)}", col))
+    return cases
+
+
 def main() -> int:
     import torch
 
@@ -947,11 +995,9 @@ def main() -> int:
             tally("ychg_colscan_full" if route is None
                   else "ychg_colscan_splith", err)
 
-    def compare_packed(label, img):
-        """Both packed kernels on the packing of one (H, W) mask, against
-        their plain versions and, for the fused one, against the reference
-        on the unpacked mask; returns the fused kernel's fields."""
-        packed = kp.pack_rows(img)
+    def compare_packed_rows(label, packed):
+        """Both packed kernels on one packed mask against their plain
+        versions; returns the fused kernel's fields."""
         tally("ychg_packed_colscan", max_abs_err(
             {"runs": kp.launch_colscan(packed)},
             {"runs": kp.packed_colscan_plain(packed)},
@@ -960,6 +1006,13 @@ def main() -> int:
         tally("ychg_packed_fused", max_abs_err(
             got, kp.packed_fused_plain(packed),
             f"ychg_packed_fused [{label}]"))
+        return got
+
+    def compare_packed(label, img):
+        """Both packed kernels on the packing of one (H, W) mask, against
+        their plain versions and, for the fused one, against the reference
+        on the unpacked mask; returns the fused kernel's fields."""
+        got = compare_packed_rows(label, kp.pack_rows(img))
         ref = ychg.analyze(img)
         max_abs_err(got, {f: getattr(ref, f) for f in fields},
                     f"ychg_packed_fused [{label}] vs core.ychg.analyze")
@@ -1025,6 +1078,9 @@ def main() -> int:
         free()
     for label, x in packed_cases(np, torch, modis):
         compare_packed(label, x)
+    for label, x in packed_row_cases(np, torch):
+        compare_packed_rows(label, x)
+        del x
     free()
     serve_stack = torch.from_numpy(np.stack(serve_masks[:SERVE_BATCH])).to(DEV)
     float_stack = torch.from_numpy(np.stack(float_masks)).to(DEV)
@@ -1258,18 +1314,6 @@ def main() -> int:
             extra = (f"; median of 101 samples, quartiles "
                      f"{q[0]:.4f}-{q[2]:.4f} ms; C entry point alone "
                      f"{row['entry_point_ms']:.4f} ms; off the main path")
-        if name == "ychg_packed_fused" and x is lone_packed:
-            # the C entry point alone on preallocated outputs (the totals
-            # accumulate over the calls; only the time is read)
-            lib = _build.load("ychg_packed", kp._SIGNATURES)
-            out = kp.launch_fused(x)
-            ptrs = [out[k].data_ptr() for k in kp._FUSED_OUT]
-            stream = torch.cuda.current_stream().cuda_stream
-            row["entry_point_ms"] = time_ms(
-                lambda: lib.ychg_packed_fused(x.data_ptr(), *x.shape, *ptrs,
-                                              stream), reps=50)
-            extra = f"; C entry point alone {row['entry_point_ms']:.4f} ms"
-            del out
         if name == "ychg_packed_fused" and x is scene_packed:
             # packed_analyze on the unpacked scene is pack_rows (torch ops)
             # and then this kernel
@@ -1280,11 +1324,11 @@ def main() -> int:
                 lambda: kp.packed_analyze(scene_img), samples=5, reps=1)
             row["pack_rows_share"] = (row["pack_rows_ms"]
                                       / row["packed_analyze_ms"])
-            extra = (f"; pack_rows alone {row['pack_rows_ms']:.4f} ms (bound "
-                     f"{row['pack_rows_bound_ms']:.4f} ms), "
-                     f"{100 * row['pack_rows_share']:.1f}% of packed_analyze "
-                     f"{row['packed_analyze_ms']:.4f} ms on the unpacked "
-                     f"scene")
+            extra = (f"; pack_rows alone {row['pack_rows_ms']:.4f} ms "
+                     f"(bound {row['pack_rows_bound_ms']:.4f} ms), "
+                     f"{100 * row['pack_rows_share']:.1f}% of "
+                     f"packed_analyze {row['packed_analyze_ms']:.4f} ms on "
+                     f"the unpacked scene")
         timings.setdefault(name, []).append(row)
         print(f"time: {name} {row['shape']} {row['dtype']}: "
               f"{row['ms']:.4f} ms (plain {row['plain_ms']:.4f} ms, bound "
@@ -1359,6 +1403,33 @@ def main() -> int:
           f"{row['bound_ms']:.6f} ms by {b_by} ({b_bytes} B), "
           f"{100 * row['bound_share']:.1f}% of bound) on {card}", flush=True)
     del out
+    # the packed kernels on the device (torch.profiler, after the trace
+    # above) and as their C entry points alone on preallocated outputs (the
+    # fused totals accumulate over the calls; only the time is read)
+    lib = _build.load("ychg_packed", kp._SIGNATURES)
+    for name, run in (("ychg_packed_colscan", kp.launch_colscan),
+                      ("ychg_packed_fused", kp.launch_fused)):
+        entry = getattr(lib, name)
+        for row, x in zip(timings[name], (scene_packed, lone_packed)):
+            row["device_ms"], row["device_launches_seen"] = kernel_device_ms(
+                lambda: run(x), (name.replace("ychg_", "") + "_kernel",))
+            check(row["device_launches_seen"] == 20,
+                  f"the trace saw {row['device_launches_seen']} {name} "
+                  f"launches on {row['shape']}, want 20")
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            out = run(x)
+            ptrs = ([out[k].data_ptr() for k in kp._FUSED_OUT]
+                    if isinstance(out, dict) else [out.data_ptr()])
+            row["entry_point_ms"] = time_ms(
+                lambda: entry(x.data_ptr(), *x.shape, *ptrs, stream), reps=50)
+            print(f"time: {name} {row['shape']} uint8 on the device "
+                  f"{row['device_ms']:.4f} ms a launch (torch.profiler, "
+                  f"{row['device_launches_seen']} launches), "
+                  f"{100 * row['device_bound_share']:.1f}% of its bound "
+                  f"{row['bound_ms']:.4f} ms; C entry point alone "
+                  f"{row['entry_point_ms']:.4f} ms; through its wrapper "
+                  f"{row['ms']:.4f} ms; on {card}", flush=True)
+            del out
     del serve_stack, float_stack, scene_stack, lone, scene_img, lone_runs
     del lone_stack, tall_stack, tall_img
     del scene_packed, lone_packed
@@ -1785,6 +1856,8 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": None,
             "library_note": LIBRARY_NOTES[name],
+            "device_ms": main_row.get("device_ms"),
+            "entry_point_ms": main_row.get("entry_point_ms"),
             "cases": stats[name]["cases"],
             "exact": name != "denoise" or float_outputs["differing"] == 0,
             "shape": main_row["shape"],

@@ -134,6 +134,21 @@ def load(name: str,
     return lib
 
 
+def on_stream(x: torch.Tensor, fn, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of ``x``'s device, made
+    the current device first only when it is not (the C entry points launch
+    on the current device). The stream handle is read with the private
+    ``torch._C._cuda_getCurrentRawStream``: the public
+    ``torch.cuda.current_stream(index).cuda_stream`` builds a Stream object
+    on every call, a few microseconds of host time that a host-bound
+    wrapper would pay on every call."""
+    index = x.get_device()
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def loaded() -> tuple[str, ...]:
     """Names of the libraries loaded into this process so far."""
     return tuple(sorted(_LIBS))

@@ -12,40 +12,43 @@
 //   packed_analyze): the same count, then step 2 (transitions, births,
 //   deaths), 2 * runs and the two totals, in one launch.
 //
-// In a byte b entered with `carry`, the foreground bit of the row above its
-// top row (the MSB of the byte above), the runs that start in the byte are
-//   rising = b & ~((b << 1) | carry)
-// and their count is __popc(rising).
+// What bounds them: device-memory bytes. The paper's 21000^2 scene packs
+// to 2625 x 21000 = 55,125,000 B: about 0.0165 ms at 3.35 TB/s, an eighth
+// of the unpacked scans' bound; the outputs are 4 bytes a column for the
+// scan and 17 for the fused kernel. A byte of a popcount design costs at
+// least five integer operations, and __popc issues at a quarter of the
+// integer rate on sm_90: that alone would take 0.013 ms on the scene.
 //
-// What bounds them: device-memory bytes. Each packed byte is read once and
-// costs five integer operations (a shift, one three-input logic op, the
-// popcount, an add and the shift that takes the next carry); the
-// outputs are 4 bytes a column for the scan and 17 for the fused kernel. The
-// paper's 21000^2 scene packs to 2625 x 21000 = 55,125,000 B: about 0.017
-// ms at 3.35 TB/s, an eighth of the unpacked scans' bound. As with the
-// unpacked scans, one image is little work for the card: 21,000 columns at
-// one thread each are under five warps an SM, so the latency of the loads
-// down each column, not the bytes, sets the time unless more threads share
-// a column.
-//
-// What the design does about it:
-//  * Each column gets kSegs threads of one block: thread (x, y) scans
-//    packed rows [y * seg, (y + 1) * seg) of column x, entered with the MSB
-//    of the byte just above its segment (0 at the top: the seam identity of
-//    ychg_colscan_splith, a byte at a time), and the block sums the kSegs
-//    partial counts in shared memory. Consecutive threads of a warp take
-//    consecutive columns, so each packed row's loads coalesce. The TPU
-//    kernel instead holds a whole packed column tile in VMEM and shifts the
-//    MSB plane down one row.
+// What the design does about it: both kernels are the column scan of
+// ychg_scan.cuh (which states its design) with the packed element kind
+// PackedRows, so they load a packed row as uint8 is loaded, V bytes a
+// thread (16, 8, 4, 2 or 1, from the base address and the pitch), and
+// count four packed bytes in one 32-bit word with shifts, logic ops and
+// adds: about 13 operations a word, 3.3 a byte, all at the full rate
+// (0.011 ms on the scene at 16.7 x 10^12 op/s, under its byte bound).
+//  * Each column is cut into row segments, each entered with the packed
+//    word just above it (0 at the top: the seam identity of
+//    ychg_colscan_splith, a word at a time); the segments' counts are
+//    summed in shared memory. The TPU kernel instead holds a whole packed
+//    column tile in VMEM and shifts the MSB plane down one row.
+//  * A packed mask has an eighth of the rows of the mask it packs, so the
+//    tiles are chosen for it (choose_packed_lanes): 256-thread blocks, four
+//    a SM at 64 registers a thread, and the widest tile whose blocks reach
+//    two a SM. The packed scene (2625 vectors of 8 B a row) takes 8 lanes
+//    (64 B a row), 329 blocks in one wave of 528 slots, 32 segments of 83
+//    packed rows; the packed 8192^2 mask (512 vectors of 16 B) takes 4
+//    lanes, 128 blocks, 64 segments of 16 packed rows. On the H100 these
+//    were the fastest of twelve tilings, from 2 to 32 lanes and 256 to
+//    1024 threads, for both kernels on both masks, or within 3% of it;
+//    16 x 512 took 16% longer for the fused kernel on the scene (PERF.md).
 //  * The TPU's fused kernel diffs within its W tile and leaves the first
-//    column of every tile to a stitch in its wrapper (a Python list and two
-//    scatters a call), because the left neighbour's count lives in another
-//    grid step. Here the column tiles overlap by one column instead: the
-//    block's x = 0 threads count the column left of the tile, so every
-//    column's left neighbour is in shared memory and no stitch is needed.
-//  * Totals: one warp (y = 0) reduces births and transitions with shuffles
-//    and adds them with one int32 atomicAdd each a block. Integer addition
-//    is exact in any order, so the totals are deterministic.
+//    column of every tile to a stitch in its wrapper, because the left
+//    neighbour's count lives in another grid step. Here, as in
+//    ychg_fused_full, the tile's first lane also scans the column left of
+//    the tile (the halo), so the block has every left neighbour itself.
+//    Step 2 is finish_column, the totals add_block_totals (ychg_step2.cuh:
+//    a block reduction, one int32 atomicAdd each a block; integer sums are
+//    exact in any order), and 2 * runs is written in the same pass.
 //  * The ragged W edge is masked here: no padded copy of the packed mask.
 //
 // Binding: plain C entry points, loaded with ctypes. Each launches on the
@@ -55,102 +58,109 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ychg_scan.cuh"
+#include "ychg_step2.cuh"
+
 namespace {
 
-constexpr int kCols = 32;  // columns of one block (a warp across them)
-constexpr int kSegs = 8;   // threads sharing one column
+// the packed kernels' block: four a SM at 64 registers a thread
+constexpr int kPackedThreads = 256;
 
-// Runs that start in `rows` packed bytes of one column from p, entered with
-// the MSB of the byte above (0 at the top of the image).
-__device__ __forceinline__ int scan_packed(const uint8_t* __restrict__ p,
-                                           int64_t W, int64_t rows,
-                                           unsigned carry) {
-  int runs = 0;
-#pragma unroll 16
-  for (int64_t r = 0; r < rows; ++r) {
-    const unsigned b = p[r * W];
-    runs += __popc(b & ~((b << 1) | carry));
-    carry = b >> 7;
-  }
-  return runs;
-}
-
-// Thread (x, y)'s share of column `col`: its segment of packed rows.
-__device__ __forceinline__ int segment_count(const uint8_t* __restrict__ pk,
-                                             int64_t Hp, int64_t W,
-                                             int64_t col) {
-  const int64_t seg = (Hp + kSegs - 1) / kSegs;
-  const int64_t r0 = threadIdx.y * seg;
-  if (col < 0 || col >= W || r0 >= Hp) return 0;
-  const int64_t rows = (Hp - r0 < seg) ? Hp - r0 : seg;
-  const uint8_t* p = pk + r0 * W + col;
-  return scan_packed(p, W, rows, r0 > 0 ? static_cast<unsigned>(p[-W]) >> 7
-                                        : 0u);
-}
-
-// Grid ceil(W / kCols), block (kCols, kSegs).
-__global__ void __launch_bounds__(kCols * kSegs)
+// Grid tiles, block (lanes, kPackedThreads / lanes): step 1 for one tile
+// of lanes vectors, its runs written.
+template <int V>
+__global__ void __launch_bounds__(kPackedThreads,
+                                  kScanThreads / kPackedThreads)
 packed_colscan_kernel(const uint8_t* __restrict__ pk, int64_t Hp, int64_t W,
-                      int* __restrict__ runs) {
-  __shared__ int part[kSegs][kCols];
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
-  part[threadIdx.y][threadIdx.x] = segment_count(pk, Hp, W, col);
-  __syncthreads();
-  if (threadIdx.y == 0 && col < W) {
-    int total = 0;
-#pragma unroll
-    for (int k = 0; k < kSegs; ++k) total += part[k][threadIdx.x];
-    runs[col] = total;
+                      int64_t nvec, int* __restrict__ runs) {
+  __shared__ ScanTile tile;
+  scan_tile<PackedRows, V, false, kPackedThreads>(pk, 0, Hp, W, nvec, tile);
+  const int lanes = blockDim.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * V;
+  for (int c = threadIdx.y * lanes + threadIdx.x; c < lanes * V;
+       c += kPackedThreads) {
+    if (c0 + c >= W) break;
+    runs[c0 + c] = tile.runs[tile_index<V>(c)];
   }
 }
 
-// Grid ceil(W / (kCols - 1)), block (kCols, kSegs). Threads x of block i
-// count column i * (kCols - 1) - 1 + x; x = 1.. own their columns, x = 0
-// only supplies the left neighbour of x = 1 (column -1 counts 0).
-__global__ void __launch_bounds__(kCols * kSegs)
+// Grid tiles, block (lanes, kPackedThreads / lanes): step 1 for one tile
+// with its halo column, then step 2, the cut vertices and the totals for
+// the tile's columns.
+template <int V>
+__global__ void __launch_bounds__(kPackedThreads,
+                                  kScanThreads / kPackedThreads)
 packed_fused_kernel(const uint8_t* __restrict__ pk, int64_t Hp, int64_t W,
-                    int* __restrict__ runs, int* __restrict__ cut,
-                    uint8_t* __restrict__ trans, int* __restrict__ births,
-                    int* __restrict__ deaths, int* __restrict__ nh,
-                    int* __restrict__ nt) {
-  __shared__ int part[kSegs][kCols];
-  __shared__ int col_runs[kCols];
-  const int x = threadIdx.x;
-  const int64_t col =
-      static_cast<int64_t>(blockIdx.x) * (kCols - 1) - 1 + x;
-  part[threadIdx.y][x] = segment_count(pk, Hp, W, col);
-  __syncthreads();
-  if (threadIdx.y != 0) return;  // one warp: the y = 0 threads
-  int run = 0;
-#pragma unroll
-  for (int k = 0; k < kSegs; ++k) run += part[k][x];
-  col_runs[x] = run;
-  __syncwarp();
-  int born = 0, t = 0;
-  if (x > 0 && col < W) {
-    const int delta = run - col_runs[x - 1];
-    born = delta > 0 ? delta : 0;
-    t = delta != 0;
-    runs[col] = run;
-    cut[col] = 2 * run;
-    trans[col] = static_cast<uint8_t>(t);  // torch.bool: the byte is 0 or 1
-    births[col] = born;
-    deaths[col] = delta < 0 ? -delta : 0;
+                    int64_t nvec, int* __restrict__ runs,
+                    int* __restrict__ cut, uint8_t* __restrict__ trans,
+                    int* __restrict__ births, int* __restrict__ deaths,
+                    int* __restrict__ nh, int* __restrict__ nt) {
+  __shared__ ScanTile tile;
+  scan_tile<PackedRows, V, true, kPackedThreads>(pk, 0, Hp, W, nvec, tile);
+  const int lanes = blockDim.x;
+  const int64_t c0 = static_cast<int64_t>(blockIdx.x) * lanes * V;
+  int born = 0;
+  int changed = 0;
+  for (int c = threadIdx.y * lanes + threadIdx.x; c < lanes * V;
+       c += kPackedThreads) {
+    if (c0 + c >= W) break;
+    const int run = tile.runs[tile_index<V>(c)];
+    const int left = c > 0 ? tile.runs[tile_index<V>(c - 1)] : tile.halo;
+    const int64_t o = c0 + c;
+    runs[o] = run;
+    cut[o] = 2 * run;
+    const int2 t = finish_column(run, left, o, trans, births, deaths);
+    born += t.x;
+    changed += t.y;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    born += __shfl_down_sync(0xffffffffu, born, o);
-    t += __shfl_down_sync(0xffffffffu, t, o);
+  add_block_totals<kPackedThreads>(born, changed, nh, nt);
+}
+
+// Lanes of a kPackedThreads block for `nvec` vectors a row: the widest
+// tile whose blocks reach two a SM, else the narrowest.
+int choose_packed_lanes(int64_t nvec, int sms) {
+  int lanes = kMaxLanes;
+  while (lanes > kMinLanes && (nvec + lanes - 1) / lanes < 2 * sms)
+    lanes >>= 1;
+  return lanes;
+}
+
+// The vector width a launch takes, as a tag for a generic lambda.
+template <int V>
+struct Vec {
+  static constexpr int bytes = V;
+};
+
+// Calls f(Vec<vec>{}); false for a width no kernel is built for.
+template <typename F>
+bool with_vec(int vec, F&& f) {
+  switch (vec) {
+    case 16: f(Vec<16>{}); return true;
+    case 8: f(Vec<8>{}); return true;
+    case 4: f(Vec<4>{}); return true;
+    case 2: f(Vec<2>{}); return true;
+    case 1: f(Vec<1>{}); return true;
   }
-  if (x == 0) {
-    if (born) atomicAdd(nh, born);
-    if (t) atomicAdd(nt, t);
-  }
+  return false;
 }
 
 bool valid_shape(int64_t Hp, int64_t W) {
   // a grid dimension of 0 is an invalid launch; x holds at most 2^31 - 1
-  return Hp >= 0 && W >= 1 && (W + kCols - 2) / (kCols - 1) <= 0x7fffffff;
+  return Hp >= 0 && W >= 1 && W <= 0x7fffffff;
+}
+
+// Calls launch(Vec<V>{}, grid, block, nvec) for the vector width of
+// `packed` and the tiles chosen for it; returns the launch's error code.
+template <typename Launch>
+int launch_packed(const void* packed, int64_t W, Launch&& launch) {
+  const int vec = vec_bytes(packed, W, 1);
+  const int64_t nvec = W / vec;
+  const int lanes = choose_packed_lanes(nvec, sm_count());
+  const dim3 grid(static_cast<unsigned>((nvec + lanes - 1) / lanes));
+  const dim3 block(lanes, kPackedThreads / lanes);
+  if (!with_vec(vec, [&](auto v) { launch(v, grid, block, nvec); }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -158,11 +168,13 @@ bool valid_shape(int64_t Hp, int64_t W) {
 extern "C" int ychg_packed_colscan(const void* packed, int64_t Hp, int64_t W,
                                    void* runs, void* stream) {
   if (!valid_shape(Hp, W)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((W + kCols - 1) / kCols));
-  const dim3 block(kCols, kSegs);
-  packed_colscan_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), Hp, W, static_cast<int*>(runs));
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  return launch_packed(packed, W, [&](auto v, dim3 grid, dim3 block,
+                                      int64_t nvec) {
+    packed_colscan_kernel<decltype(v)::bytes><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(packed), Hp, W, nvec,
+        static_cast<int*>(runs));
+  });
 }
 
 extern "C" int ychg_packed_fused(const void* packed, int64_t Hp, int64_t W,
@@ -170,12 +182,14 @@ extern "C" int ychg_packed_fused(const void* packed, int64_t Hp, int64_t W,
                                  void* births, void* deaths, void* nh,
                                  void* nt, void* stream) {
   if (!valid_shape(Hp, W)) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned>((W + kCols - 2) / (kCols - 1)));
-  const dim3 block(kCols, kSegs);
-  packed_fused_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(packed), Hp, W, static_cast<int*>(runs),
-      static_cast<int*>(cut), static_cast<uint8_t*>(trans),
-      static_cast<int*>(births), static_cast<int*>(deaths),
-      static_cast<int*>(nh), static_cast<int*>(nt));
-  return static_cast<int>(cudaGetLastError());
+  const auto s = static_cast<cudaStream_t>(stream);
+  return launch_packed(packed, W, [&](auto v, dim3 grid, dim3 block,
+                                      int64_t nvec) {
+    packed_fused_kernel<decltype(v)::bytes><<<grid, block, 0, s>>>(
+        static_cast<const uint8_t*>(packed), Hp, W, nvec,
+        static_cast<int*>(runs), static_cast<int*>(cut),
+        static_cast<uint8_t*>(trans), static_cast<int*>(births),
+        static_cast<int*>(deaths), static_cast<int*>(nh),
+        static_cast<int*>(nt));
+  });
 }

@@ -1,10 +1,12 @@
 // The step-1 scan shared by ychg_fused_full and ychg_fused_splith
-// (ychg_fused.cu) and ychg_colscan_full (ychg_colscan.cu), for Hopper
-// (sm_90a): per-column maximal-run counts of a (H, W) mask over a range of
-// its rows, runs[j] = the number of rows i of the range where x[i][j] is
-// foreground and x[i-1][j] is not (x[-1] = 0). The full-column kernels scan
-// all H rows in one block a tile; ychg_fused_splith gives each block one
-// range of block_h rows (grid z) and sums the ranges' counts.
+// (ychg_fused.cu), ychg_colscan_full (ychg_colscan.cu) and the two packed
+// kernels (ychg_packed.cu), for Hopper (sm_90a): per-column maximal-run
+// counts of a (H, W) mask over a range of its rows, runs[j] = the number of
+// rows i of the range where x[i][j] is foreground and x[i-1][j] is not
+// (x[-1] = 0). The full-column kernels scan all H rows in one block a tile;
+// ychg_fused_splith gives each block one range of block_h rows (grid z) and
+// sums the ranges' counts. A packed mask (element kind PackedRows) holds
+// eight rows of a column in a byte, so its "rows" are packed rows.
 //
 // What bounds it: device-memory bytes. A pixel is read once and costs a few
 // integer operations; the outputs are a few bytes a column.
@@ -27,6 +29,19 @@
 //    64,000 rows, else only at its end). int32 and float32 take one column
 //    a 32-bit word and count in it directly. float32 is foreground by its
 //    exponent bits: +-0 and subnormals are background, NaN and inf are not.
+//  * A packed mask is read as uint8 is, a byte a column, but a byte holds
+//    eight rows (bit i is row 8r + i, LSB the top). A row step takes the
+//    word w of four packed bytes and the word a of the same columns one
+//    packed row above; the runs that start in each byte are
+//      rising = w & ~(((w << 1) & 0xfefefefe) | ((a >> 7) & 0x01010101))
+//    (a byte's rows shifted down one, the MSB of the byte above at the
+//    top). Two rising bits are never adjacent, so a byte holds at most 4
+//    and three SWAR steps count them in place, all at the full integer
+//    rate (no __popc, a quarter of it on sm_90). At 4 a row a byte lane
+//    fills in 63 rows, so its chunk is kPackedChunk rows; the 16-bit lanes
+//    take kPairChunks of those chunks (60 * 4 * 256 < 65536). A segment is
+//    entered with the packed word just above it (only its MSBs count), 0
+//    at the top of the image.
 //  * Several threads a column. A block is kScanThreads threads: `lanes`
 //    vectors across (blockDim.x) times kScanThreads / lanes row segments
 //    (blockDim.y) of its row range. Each segment is a contiguous run of
@@ -45,7 +60,9 @@
 //    ranges of 2048 rows take 32 lanes, 83 tiles x 11 = 913 blocks of 64
 //    rows a segment, and 8 x 8192^2 takes 32 lanes, 16 x 8 x 4 = 512
 //    blocks. One block a SM: 32 warps, at most 64 registers a thread
-//    (__launch_bounds__(kScanThreads, 1)).
+//    (__launch_bounds__(kScanThreads, 1)). The packed kernels take
+//    smaller blocks (ychg_packed.cu): scan_tile takes the block's thread
+//    count as kThreads.
 //  * Step 2 needs the run count of the column left of a tile, which another
 //    block owns; blocks run in no order and none waits for another. With
 //    `halo`, the segments of the tile's first vector also scan that column
@@ -71,8 +88,16 @@ constexpr int kMaxVecBytes = 16;
 constexpr int kUnroll = 4;
 // rows between two flushes of the byte lanes (at most 255 rising edges)
 constexpr int kChunk = 252;
+// the same for packed rows, at most 4 rising edges a byte each
+constexpr int kPackedChunk = 60;
 // chunks between two flushes of the 16-bit lanes (252 * 256 < 65536)
 constexpr int kPairChunks = 256;
+
+// The element kind of a packed mask: eight rows of one column, bit i row
+// 8r + i (LSB the top row).
+struct PackedRows {
+  uint8_t bits;
+};
 
 template <typename T>
 __device__ __forceinline__ int foreground(T v) {
@@ -107,6 +132,35 @@ template <>
 __device__ __forceinline__ uint32_t fg_lanes<float>(uint32_t w) {
   return (w & 0x7f800000u) != 0u;
 }
+
+// A packed word is its own foreground bits: eight rows of each byte lane.
+template <>
+__device__ __forceinline__ uint32_t fg_lanes<PackedRows>(uint32_t w) {
+  return w;
+}
+
+template <typename T>
+constexpr bool kPacked = false;
+template <>
+constexpr bool kPacked<PackedRows> = true;
+
+// The runs that start in each byte of a packed word f, given the word
+// `prev` of the same columns one packed row up, counted in f's byte lanes.
+__device__ __forceinline__ uint32_t packed_rising(uint32_t f, uint32_t prev) {
+  const uint32_t r =
+      f & ~(((f << 1) & 0xfefefefeu) | ((prev >> 7) & 0x01010101u));
+  // no two bits of r are adjacent: each bit pair, then nibble, then byte
+  // holds at most 1, 2, 4, so no sum carries out of its field
+  const uint32_t y = (r | (r >> 1)) & 0x55555555u;
+  const uint32_t z = (y + (y >> 2)) & 0x33333333u;
+  return (z + (z >> 4)) & 0x0f0f0f0fu;
+}
+
+// rows between two flushes of the byte lanes
+template <typename T>
+constexpr int kChunkRows = kChunk;
+template <>
+constexpr int kChunkRows<PackedRows> = kPackedChunk;
 
 // 32-bit words in a vector of V bytes (a narrower vector is one word,
 // zero-extended)
@@ -181,12 +235,20 @@ struct SegmentCounts {
   }
 };
 
+// The runs that start at the rows of element kind T's foreground word f,
+// given the word p of the same columns one row up, counted in f's lanes.
+// A macro, not a function: on the card, an inlined function here changed
+// the machine code of the int32 and float32 scans (scripts/time_packed.py
+// compares it), and a macro keeps it as it was.
+#define YCHG_RISING(T, f, p) \
+  (kPacked<T> ? packed_rising((f), (p)) : ((f) & ~(p)))
+
 // Scans rows [row0, row0 + nrows) of a (H, W) image whose first byte is
 // `img` for the block's tile of `lanes` vectors (blockIdx.x), and leaves
-// its counts in `tile`. `nvec` vectors of V bytes make a row. Every thread
-// of the block must call it; it returns after a __syncthreads(), with
-// `tile` complete.
-template <typename T, int V, bool kHalo>
+// its counts in `tile`. `nvec` vectors of V bytes make a row. The block
+// has kThreads threads; every one must call it. It returns after a
+// __syncthreads(), with `tile` complete.
+template <typename T, int V, bool kHalo, int kThreads = kScanThreads>
 __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
                                           int64_t row0, int64_t nrows,
                                           int64_t W, int64_t nvec,
@@ -198,7 +260,7 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
   const int segs = blockDim.y;
   const int lx = threadIdx.x;
   const int tid = threadIdx.y * lanes + lx;
-  for (int i = tid; i < lanes * (E + 1); i += kScanThreads) tile.runs[i] = 0;
+  for (int i = tid; i < lanes * (E + 1); i += kThreads) tile.runs[i] = 0;
   if (tid == 0) tile.halo = 0;
   __syncthreads();
 
@@ -234,7 +296,7 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
   int hcount = 0;
   int chunks = 0;
   for (int64_t r = 0; r < rows;) {
-    const int64_t end = rows - r < kChunk ? rows : r + kChunk;
+    const int64_t end = rows - r < kChunkRows<T> ? rows : r + kChunkRows<T>;
     uint32_t acc[kWords];
 #pragma unroll
     for (int i = 0; i < kWords; ++i) acc[i] = 0;
@@ -252,7 +314,7 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
 #pragma unroll
         for (int i = 0; i < kWords; ++i) {
           const uint32_t f = fg_lanes<T>(w[u][i]);
-          acc[i] += f & ~prev[i];
+          acc[i] += YCHG_RISING(T, f, prev[i]);
           prev[i] = f;
         }
       }
@@ -260,7 +322,7 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           const uint32_t f = fg_lanes<T>(hw[u]);
-          hcount += static_cast<int>(f & ~hprev);
+          hcount += static_cast<int>(YCHG_RISING(T, f, hprev));
           hprev = f;
         }
       }
@@ -273,12 +335,12 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
 #pragma unroll
       for (int i = 0; i < kWords; ++i) {
         const uint32_t f = fg_lanes<T>(w[i]);
-        acc[i] += f & ~prev[i];
+        acc[i] += YCHG_RISING(T, f, prev[i]);
         prev[i] = f;
       }
       if (halo) {
         const uint32_t f = fg_lanes<T>(load_pixel<T>(h));
-        hcount += static_cast<int>(f & ~hprev);
+        hcount += static_cast<int>(YCHG_RISING(T, f, hprev));
         hprev = f;
       }
       p += pitch;
@@ -292,7 +354,7 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
         counts.pair[2 * i + 1] += (acc[i] >> 8) & 0x00ff00ffu;
       }
       // 16-bit lanes into shared memory before they could overflow (only a
-      // segment longer than kChunk * kPairChunks rows gets here)
+      // segment longer than kChunkRows<T> * kPairChunks rows gets here)
       if (++chunks == kPairChunks && r < rows) {
         chunks = 0;
 #pragma unroll
@@ -324,6 +386,8 @@ __device__ __forceinline__ void scan_tile(const uint8_t* __restrict__ img,
   }
   __syncthreads();
 }
+
+#undef YCHG_RISING
 
 // The widest vector (16, 8, 4, 2 or 1 bytes, at least one pixel) that
 // divides both the base address and the row pitch.

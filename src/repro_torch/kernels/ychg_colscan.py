@@ -238,21 +238,6 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def _call(x: Tensor, fn, *args) -> int:
-    """``fn(*args, stream)`` on the current stream of ``x``'s device, made
-    the current device first only when it is not (the C entry points launch
-    on the current device). The stream handle is read with the private
-    ``torch._C._cuda_getCurrentRawStream``: the public
-    ``torch.cuda.current_stream(index).cuda_stream`` builds a Stream object
-    on every call, a few microseconds of host time that the host-bound
-    ``ychg_diff`` wrapper would pay on every mask."""
-    index = x.get_device()
-    if index == torch.cuda.current_device():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    with torch.cuda.device(index):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
-
-
 def launch_full(img: Tensor) -> Tensor:
     """The ``ychg_colscan_full`` CUDA kernel on a CUDA (H, W) mask."""
     x, code = _kernel_input(img)
@@ -261,8 +246,8 @@ def launch_full(img: Tensor) -> Tensor:
     if w == 0:  # nothing to launch; a 0 grid is invalid
         return runs
     lib = _build.load("ychg_colscan", _SIGNATURES)
-    _raise_on(_call(x, lib.ychg_colscan_full, x.data_ptr(), code, h, w,
-                    runs.data_ptr()), "ychg_colscan_full")
+    _raise_on(_build.on_stream(x, lib.ychg_colscan_full, x.data_ptr(), code,
+                               h, w, runs.data_ptr()), "ychg_colscan_full")
     LAUNCHES["ychg_colscan_full"] += 1
     return runs
 
@@ -277,8 +262,9 @@ def launch_splith(img: Tensor, *, block_h: int = 2048) -> Tensor:
     if h == 0 or w == 0:
         return runs
     lib = _build.load("ychg_colscan", _SIGNATURES)
-    _raise_on(_call(x, lib.ychg_colscan_splith, x.data_ptr(), code, h, w,
-                    block_h, runs.data_ptr()), "ychg_colscan_splith")
+    _raise_on(_build.on_stream(x, lib.ychg_colscan_splith, x.data_ptr(),
+                               code, h, w, block_h, runs.data_ptr()),
+              "ychg_colscan_splith")
     LAUNCHES["ychg_colscan_splith"] += 1
     return runs
 
@@ -297,9 +283,10 @@ def launch_diff(runs: Tensor) -> Dict[str, Tensor]:
     if w == 0:
         return out
     lib = _build.load("ychg_colscan", _SIGNATURES)
-    _raise_on(_call(runs, lib.ychg_diff, runs.data_ptr(), w,
-                    out["transitions"].data_ptr(), out["births"].data_ptr(),
-                    out["deaths"].data_ptr()), "ychg_diff")
+    _raise_on(_build.on_stream(runs, lib.ychg_diff, runs.data_ptr(), w,
+                               out["transitions"].data_ptr(),
+                               out["births"].data_ptr(),
+                               out["deaths"].data_ptr()), "ychg_diff")
     LAUNCHES["ychg_diff"] += 1
     return out
 
@@ -319,8 +306,9 @@ def launch_analyze(imgs: Tensor, *, block_h: Optional[int] = None
     if b == 0 or w == 0:
         return out
     lib = _build.load("ychg_colscan", _SIGNATURES)
-    _raise_on(_call(x, lib.ychg_colscan_analyze, x.data_ptr(), code, b, h, w,
-                    block_h or 0, *[out[k].data_ptr() for k in ANALYZE_FIELDS]),
+    _raise_on(_build.on_stream(x, lib.ychg_colscan_analyze, x.data_ptr(),
+                               code, b, h, w, block_h or 0,
+                               *[out[k].data_ptr() for k in ANALYZE_FIELDS]),
               "ychg_colscan_analyze")
     if block_h is None:
         LAUNCHES["ychg_colscan_full"] += b

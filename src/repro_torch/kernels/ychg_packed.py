@@ -10,16 +10,19 @@ with ``carry`` (the MSB of the byte above, 0 at the top)
 
 Two hand-written CUDA kernels (``csrc/ychg_packed.cu``, which explains
 their design and what bounds them on Hopper), each beside its plain
-PyTorch version:
+PyTorch version. Both are the column scan of ``csrc/ychg_scan.cuh`` over
+packed rows: four packed bytes in one 32-bit word, their rising bits
+counted in the word's byte lanes without a popcount.
 
   ``ychg_packed_colscan``  replaces ``repro/kernels/ychg_packed.py::
                            _packed_colscan_kernel``: (ceil(H/8), W) uint8
                            -> (W,) int32 run counts.
   ``ychg_packed_fused``    replaces ``_packed_fused_kernel``: the same
                            count plus step 2, ``2 * runs`` and the totals,
-                           in one launch. Its column tiles overlap by one
-                           column, so the reference wrapper's tile-start
-                           stitch is not needed.
+                           in one launch, into views of one zeroed buffer.
+                           Each tile also scans the column left of it, so
+                           the reference wrapper's tile-start stitch is
+                           not needed.
 
 :func:`pack_rows` is plain torch ops, as the reference's is ``jnp``: no
 kernel. Foreground is :func:`repro_torch.core.ychg.foreground` (float32
@@ -39,7 +42,11 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.ychg import foreground, hyperedge_transitions
+from repro_torch.core.ychg import (
+    foreground,
+    hyperedge_transitions,
+    zeroed_outputs,
+)
 from repro_torch.kernels import _build
 
 Tensor = torch.Tensor
@@ -54,6 +61,7 @@ _SIGNATURES = {
     # packed, Hp, W, runs, cut, trans, births, deaths, nh, nt, stream
     "ychg_packed_fused": (_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P),
 }
+# the fused kernel's outputs, in its C entry point's order
 _FUSED_OUT = ("runs", "cut_vertices", "transitions", "births", "deaths",
               "n_hyperedges", "n_transitions")
 
@@ -183,36 +191,27 @@ def launch_colscan(packed: Tensor) -> Tensor:
     if w == 0:  # nothing to launch; a 0 grid is invalid
         return runs
     lib = _build.load("ychg_packed", _SIGNATURES)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream(packed.device).cuda_stream
-        err = lib.ychg_packed_colscan(packed.data_ptr(), hp, w,
-                                      runs.data_ptr(), stream)
-    _raise_on(err, "ychg_packed_colscan")
+    _raise_on(_build.on_stream(packed, lib.ychg_packed_colscan,
+                               packed.data_ptr(), hp, w, runs.data_ptr()),
+              "ychg_packed_colscan")
     LAUNCHES["ychg_packed_colscan"] += 1
     return runs
 
 
 def launch_fused(packed: Tensor) -> Dict[str, Tensor]:
-    """The ``ychg_packed_fused`` CUDA kernel on a CUDA packed mask."""
+    """The ``ychg_packed_fused`` CUDA kernel on a CUDA packed mask; the
+    seven fields are views of one zeroed buffer, (W,) planes and 0-d
+    totals."""
     _cuda_packed(packed)
     hp, w = packed.shape
-    dev = packed.device
-    totals = torch.zeros(2, dtype=torch.int32, device=dev)
-    out = {"runs": torch.empty(w, dtype=torch.int32, device=dev),
-           "cut_vertices": torch.empty(w, dtype=torch.int32, device=dev),
-           "transitions": torch.empty(w, dtype=torch.bool, device=dev),
-           "births": torch.empty(w, dtype=torch.int32, device=dev),
-           "deaths": torch.empty(w, dtype=torch.int32, device=dev),
-           "n_hyperedges": totals[0],
-           "n_transitions": totals[1]}
+    out = {k: v[0] for k, v in zeroed_outputs(_FUSED_OUT, 1, w,
+                                               packed.device).items()}
     if w == 0:
         return out
     lib = _build.load("ychg_packed", _SIGNATURES)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ychg_packed_fused(packed.data_ptr(), hp, w,
-                                    *(out[k].data_ptr() for k in _FUSED_OUT),
-                                    stream)
-    _raise_on(err, "ychg_packed_fused")
+    _raise_on(_build.on_stream(packed, lib.ychg_packed_fused,
+                               packed.data_ptr(), hp, w,
+                               *[out[k].data_ptr() for k in _FUSED_OUT]),
+              "ychg_packed_fused")
     LAUNCHES["ychg_packed_fused"] += 1
     return out

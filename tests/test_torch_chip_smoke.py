@@ -63,8 +63,11 @@ REHEARSAL = textwrap.dedent("""
     cs.RESUME_H, cs.RESUME_W, cs.RESUME_TILE_H = 64, 96, 16
     cs.card_line = lambda: "CPU rehearsal, 0 W"
     cs.ptx_float_ops = lambda source: {"add.rn.ftz.f32": 1}
-    # no trace of a card here: the step-2 kernel's launches as if seen
-    cs.kernel_device_ms = lambda fn, names, calls=20: (0.001, calls * 8)
+    # no trace of a card here: the launches as if seen, the step-2 kernel
+    # once a mask of the serving batch
+    cs.kernel_device_ms = lambda fn, names, calls=20: (
+        0.001, calls * (8 if "diff_kernel<true>" in names else 1))
+    cs.PACKED_MAX_SEGMENTS, cs.PACKED_LONG_SEGMENTS = 4, (3, 5)
     _build.build = lambda names: {n: 0.0 for n in names}
 
     class NoLibrary:  # the C entry points timed alone do nothing here
@@ -177,7 +180,7 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         assert (f"exact: Engine() on a {label} (2, 300, 517) mask equals it "
                 "on its low 32 bits") in out.stdout
     assert "ychg_fused_full against ychg_fused_splith" in out.stdout
-    assert out.stdout.count("C entry point alone") == 5
+    assert out.stdout.count("C entry point alone") == 8
     assert "time: ychg_fused_splith [1, 320, 64] uint8" in out.stdout
     assert "time: ychg_fused_full [1, 320, 64] uint8" in out.stdout
     assert "the two step-1 routes on the tall strip [320, 64]" in out.stdout
@@ -196,6 +199,16 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         "diff_kernel<true>, the batch entry's step 2",
         "diff_kernel<false>, off the main path"]
     assert diff["shape"] == [64] and diff["ms"] == 0.001
+    for name in ("ychg_packed_colscan", "ychg_packed_fused"):
+        packed = next(k for k in kernels if k["name"] == name)
+        assert packed["device_ms"] == 0.001, name
+        assert [t["shape"] for t in packed["timings"]] == [[15, 120],
+                                                           [8, 64]]
+        for t in packed["timings"]:
+            assert t["device_ms"] == 0.001 and "entry_point_ms" in t, name
+        assert f"time: {name} [15, 120] uint8: " in out.stdout
+    assert "exact: ychg_packed_colscan equals its plain version on" in (
+        out.stdout)
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]
