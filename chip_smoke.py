@@ -101,7 +101,29 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      to the plain reference, ``/metrics`` parsed, and a 429 with
      Retry-After at a full queue. Every kernel must have launched in this
      phase;
-  5. the paper's comparison, for information: its serial NumPy baseline
+  5. the engine's batch mesh and the worker fleet, every launch counter
+     set to 0 just before it: the serving batch through
+     ``Engine().with_mesh(make_batch_mesh())``, through a mesh naming the
+     card three times on its first five masks (padded to six, the pad
+     stripped) and through the meshed engine ``with_config(
+     stream_vmem_budget=0)`` (ychg on ``ychg_fused_splith``), for ychg,
+     ccl and denoise, each equal to the unmeshed ``Engine()`` (every
+     field, dtype included) with its kernel's launch counter moving
+     (host-clock ms beside the unmeshed call); then two worker processes
+     (``python -m repro_torch.fleet.worker``) on the card behind a
+     ``FleetRouter``: 8 x 2048^2 masks through ``/v1/analyze_batch``, one
+     4096^2 mask through ``/v1/ychg``, ``/v1/ccl``, ``/v1/denoise`` and
+     ``/v1/pipeline`` at 2048^2, each byte-identical to an in-process
+     ``Service(Engine())``; both workers served; the rolled-up
+     ``/metrics`` shows dispatches to ``fused`` (ychg) and ``cuda`` (ccl,
+     denoise); wire ms and Mpx/s through the router beside the direct
+     front end on fresh masks; the owner of one mask killed, its repeat
+     rerouted (``ychg_fleet_rerouted_total`` >= 1), the slot restarted
+     and the repeat served from the survivor's cache
+     (``ychg_cache_peer_hits_total`` >= 1), both byte-identical; spawn
+     and restart seconds; last the SLO legs (priority, deadline and
+     quota) of ``launch.serve.slo_smoke`` on the card;
+  6. the paper's comparison, for information: its serial NumPy baseline
      on the host against the ``cuda`` and ``fused`` backends on the card,
      at each resolution of the workload up to 12000^2 and the 21000^2
      scene, all three equal.
@@ -112,6 +134,8 @@ It prints the kernels' JSON line, the card line, and last
 
 from __future__ import annotations
 
+import argparse
+import asyncio
 import glob
 import json
 import os
@@ -204,6 +228,13 @@ IMPULSE_SHARE = 0.01       # impulse pixels in the float32 denoise inputs
 SUBNORMAL_VALUES = (0.0, -0.0, 1e-39, -1e-39, 5e-41, -5e-41, 1.5, -2.0,
                     float("nan"), float("inf"), float("-inf"), 0.25)
 FRONTEND_RES, FRONTEND_BIG_RES = 2048, 4096
+# phase 5: the mesh legs' repeated mesh and ragged batch; the backend each
+# op resolves to on the card, meshed in this process and in the fleet's
+# worker processes; the SLO leg's request side and batch
+MESH_REPEAT, MESH_RAGGED_B = 3, 5
+MESH_BACKENDS = {"ychg": "fused", "ccl": "cuda", "denoise": "cuda"}
+FLEET_BACKENDS = dict(MESH_BACKENDS)
+SLO_RES, SLO_BATCH = 1024, 4
 PAPER_MAX_RES = 12000      # the paper's comparison: resolutions up to this
 
 
@@ -859,6 +890,15 @@ def main() -> int:
     from repro_torch.core import ychg
     from repro_torch.data import modis
     from repro_torch.engine import Engine, EngineConfig, registry
+    from repro_torch.engine import ops as engine_ops
+    from repro_torch.fleet import (
+        FleetRouter,
+        FleetSupervisor,
+        HashRing,
+        RouterConfig,
+        RouterThread,
+    )
+    from repro_torch.fleet.router import routing_key
     from repro_torch.frontend import ServerThread, YCHGClient
     from repro_torch.kernels import _build
     from repro_torch.kernels import ccl as kccl
@@ -870,11 +910,14 @@ def main() -> int:
     from repro_torch.launch.serve import (
         check_metrics_page,
         derived_masks,
+        export_pythonpath,
         overload_over_wire,
         overload_pass,
         pipeline_pass,
         serve_passes,
+        slo_smoke,
     )
+    from repro_torch.obs import parse_prom_text
     from repro_torch.scene import (
         BulkJob,
         BulkJobConfig,
@@ -886,6 +929,7 @@ def main() -> int:
         synthetic_manifest,
     )
     from repro_torch.service import ServiceConfig, YCHGService
+    from repro_torch.sharding import make_batch_mesh
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -1780,7 +1824,254 @@ def main() -> int:
     print(f"launches on the main path: {json.dumps(launches)}; backend "
           f"calls: {json.dumps(calls)}", flush=True)
 
-    # 5. for information: one engine call on the device-resident serving
+    # 5. the engine's batch mesh and the worker fleet, counted from zero
+    t_phase = time.perf_counter()
+    for module in (kf, kc, kdn, kccl, kp):
+        module.reset_launch_counts()
+    registry.reset_call_counts()
+    mesh_kernels = {"ychg_fused_full": kf, "ychg_fused_splith": kf,
+                    "ccl": kccl, "denoise": kdn}
+
+    def same_fields(got, want, label):
+        check(set(got) == set(want), f"{label}: fields {sorted(got)}")
+        for f, w in want.items():
+            g = got[f]
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{label}: field {f} is {g.dtype} {tuple(g.shape)}, want "
+                  f"{w.dtype} {tuple(w.shape)}")
+            if g.is_floating_point():   # bit for bit
+                g, w = g.view(torch.int32), w.view(torch.int32)
+            check(torch.equal(g, w), f"{label}: field {f} differs")
+
+    def op_fields(op, res):
+        return {f: getattr(res, f) for f in engine_ops.get_op(op).fields}
+
+    def host_ms(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn().block_until_ready()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    mesh_x = torch.from_numpy(stack).to(DEV)
+    unmeshed = Engine()
+    one_card = make_batch_mesh()
+    repeated = make_batch_mesh(devices=[DEV] * MESH_REPEAT)
+    legs = [
+        (f"Engine().with_mesh(make_batch_mesh()) {one_card!r}",
+         unmeshed.with_mesh(one_card), mesh_x, "ychg_fused_full"),
+        (f"a mesh naming the card {MESH_REPEAT} times, B = "
+         f"{MESH_RAGGED_B} (padded to a multiple of {MESH_REPEAT})",
+         unmeshed.with_mesh(repeated), mesh_x[:MESH_RAGGED_B],
+         "ychg_fused_full"),
+        ("the meshed engine with_config(stream_vmem_budget=0)",
+         unmeshed.with_mesh(one_card).with_config(stream_vmem_budget=0),
+         mesh_x, "ychg_fused_splith"),
+    ]
+    # launches of the meshed calls alone (the unmeshed references and
+    # their timing excluded)
+    mesh_launches = dict.fromkeys(mesh_kernels, 0)
+    mesh_rows = []
+    for label, eng, xs, ychg_kernel in legs:
+        row = {"leg": label, "shape": list(xs.shape)}
+        for op, kernel in (("ychg", ychg_kernel), ("ccl", "ccl"),
+                           ("denoise", "denoise")):
+            check(eng.resolve_backend(op=op) == MESH_BACKENDS[op],
+                  f"mesh leg [{label}] resolves {op} to "
+                  f"{eng.resolve_backend(op=op)!r}")
+            want = op_fields(op, unmeshed.analyze_batch(xs, op=op))
+            before = {k: m.LAUNCHES[k] for k, m in mesh_kernels.items()}
+            got = op_fields(op, eng.analyze_batch(
+                xs, op=op).block_until_ready())
+            check(mesh_kernels[kernel].LAUNCHES[kernel] > before[kernel],
+                  f"mesh leg [{label}] op {op} launched no {kernel}")
+            same_fields(got, want, f"mesh leg [{label}] op {op}")
+            del got, want
+            row[op] = {"kernel": kernel, "meshed_ms": host_ms(
+                lambda: eng.analyze_batch(xs, op=op))}
+            for k, m in mesh_kernels.items():
+                mesh_launches[k] += m.LAUNCHES[k] - before[k]
+            row[op]["unmeshed_ms"] = host_ms(
+                lambda: unmeshed.analyze_batch(xs, op=op))
+            free()
+        mesh_rows.append(row)
+        print(f"mesh: {label} on {row['shape']} uint8 equals Engine() for "
+              f"ychg, ccl and denoise (every field, dtype included); host "
+              f"ms meshed / unmeshed (median of 3): "
+              + ", ".join(f"{op} [{row[op]['kernel']}] "
+                          f"{row[op]['meshed_ms']:.3f} / "
+                          f"{row[op]['unmeshed_ms']:.3f}"
+                          for op in ("ychg", "ccl", "denoise"))
+              + f"; {card}", flush=True)
+    print(f"mesh: launches in the mesh legs {json.dumps(mesh_launches)}",
+          flush=True)
+    del mesh_x
+    free()
+
+    # the fleet: worker processes on the card behind the router
+    buckets = (FRONTEND_RES, FRONTEND_BIG_RES)
+    fe_timed = [np.ascontiguousarray(m[-FRONTEND_RES:, -FRONTEND_RES:])
+                for m in serve_masks[:SERVE_BATCH]]
+    fe_timed_big = np.ascontiguousarray(
+        serve_masks[SERVE_BATCH + 2][-FRONTEND_BIG_RES:, -FRONTEND_BIG_RES:])
+    requests = [("/v1/ychg", fe_big, "ychg", None),
+                ("/v1/ccl", fe_ccl, "ccl", None),
+                ("/v1/denoise", fe_noisy[0], "denoise", None),
+                ("/v1/pipeline", fe_noisy[1], None, ["denoise", "ychg"])]
+    ref_cfg = ServiceConfig(bucket_sides=buckets, max_batch=SERVE_BATCH)
+    with YCHGService(Engine(), ref_cfg) as ref_svc:
+        want_batch = [ref_svc.submit(m).result(timeout=600).to_host()
+                      for m in fe_batch]
+        want_req = [(ref_svc.submit_pipeline(m, stages) if stages
+                     else ref_svc.submit(m, op=op)).result(
+                         timeout=600).to_host()
+                    for _, m, op, stages in requests]
+        # the direct front end, for the wire times beside the router's
+        with ServerThread(ref_svc) as srv, \
+                YCHGClient("127.0.0.1", srv.port) as client:
+            t0 = time.perf_counter()
+            direct_items = list(client.analyze_batch(fe_timed))
+            t_direct_batch = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            direct_big = client.analyze(fe_timed_big, op="ychg")
+            t_direct_big = time.perf_counter() - t0
+    direct = {it.id: it.result for it in direct_items}
+
+    def wire_same(got, want, label):
+        check(set(got) == set(want), f"{label}: fields {sorted(got)}")
+        for f, w in want.items():
+            check(got[f].dtype == w.dtype and got[f].shape == w.shape
+                  and got[f].tobytes() == w.tobytes(),
+                  f"{label}: field {f} is not byte-identical")
+
+    def counter(page, name, **labels):
+        return sum(s.value for s in page.samples
+                   if s.name == name and dict(s.labels) == labels)
+
+    export_pythonpath()
+    sup = FleetSupervisor(2, worker_args=[
+        "--buckets", ",".join(str(b) for b in buckets),
+        "--max-batch", str(SERVE_BATCH), "--device", DEV])
+    try:
+        links = sup.start()
+        spawn_s = dict(sup.spawn_seconds)
+        router = FleetRouter(links, RouterConfig(
+            bucket_sides=buckets, max_batch=SERVE_BATCH,
+            health_interval_s=3600.0), supervisor=sup)
+        with RouterThread(router) as rt, \
+                YCHGClient("127.0.0.1", rt.port) as client:
+            items = list(client.analyze_batch(fe_batch))
+            check(sorted(it.id for it in items) == list(range(SERVE_BATCH))
+                  and all(it.ok for it in items),
+                  f"fleet /v1/analyze_batch: "
+                  f"{[(it.id, it.error) for it in items]}")
+            for it in items:
+                wire_same(it.result, want_batch[it.id],
+                          f"fleet /v1/analyze_batch mask {it.id}")
+            for (path, m, op, stages), want in zip(requests, want_req):
+                got = (client.pipeline(m, stages) if stages
+                       else client.analyze(m, op=op))
+                wire_same(got, want, f"fleet {path}")
+            served = {}
+            for link in links:
+                with YCHGClient(link.host, link.http_port) as wc:
+                    served[link.name] = counter(
+                        parse_prom_text(wc.metrics_text()),
+                        "ychg_completed_total")
+            check(all(n > 0 for n in served.values()),
+                  f"fleet: a worker served nothing: {served}")
+            page = parse_prom_text(client.metrics_text())
+            dispatches = {op: counter(
+                page, "ychg_engine_dispatch_seconds_count", op=op,
+                backend=backend) for op, backend in FLEET_BACKENDS.items()}
+            check(all(n > 0 for n in dispatches.values()),
+                  f"fleet: rolled-up dispatches {dispatches} miss a kernel "
+                  f"backend ({FLEET_BACKENDS})")
+            print(f"fleet: 2 worker processes on {DEV} behind the router "
+                  f"(spawned in " + ", ".join(
+                      f"{n} {s:.2f} s" for n, s in spawn_s.items())
+                  + f"): /v1/analyze_batch of {SERVE_BATCH} x "
+                  f"{FRONTEND_RES}^2, /v1/ychg {FRONTEND_BIG_RES}^2, "
+                  f"/v1/ccl, /v1/denoise and /v1/pipeline at "
+                  f"{FRONTEND_RES}^2 byte-identical to an in-process "
+                  f"Service(Engine()); completed per worker "
+                  f"{json.dumps(served)}; rolled-up dispatches "
+                  f"{json.dumps(dispatches)}", flush=True)
+
+            t0 = time.perf_counter()
+            items = list(client.analyze_batch(fe_timed))
+            t_fleet_batch = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            got = client.analyze(fe_timed_big, op="ychg")
+            t_fleet_big = time.perf_counter() - t0
+            wire_same(got, direct_big, "fleet /v1/ychg (timed)")
+            for it in items:
+                check(it.ok, f"fleet timed batch: {it.error}")
+                wire_same(it.result, direct[it.id],
+                          f"fleet timed batch mask {it.id}")
+            px = SERVE_BATCH * FRONTEND_RES ** 2
+            big_px = FRONTEND_BIG_RES ** 2
+            print(f"fleet: wire through the router against the direct front "
+                  f"end (fresh masks, both cold): /v1/analyze_batch of "
+                  f"{SERVE_BATCH} x {FRONTEND_RES}^2 "
+                  f"{t_fleet_batch * 1e3:.1f} ms "
+                  f"({px / t_fleet_batch / 1e6:.1f} Mpx/s) against "
+                  f"{t_direct_batch * 1e3:.1f} ms "
+                  f"({px / t_direct_batch / 1e6:.1f} Mpx/s); /v1/ychg "
+                  f"{FRONTEND_BIG_RES}^2 {t_fleet_big * 1e3:.1f} ms "
+                  f"({big_px / t_fleet_big / 1e6:.1f} Mpx/s) against "
+                  f"{t_direct_big * 1e3:.1f} ms "
+                  f"({big_px / t_direct_big / 1e6:.1f} Mpx/s); {card}",
+                  flush=True)
+
+            victim = fe_batch[0]
+            owner = HashRing([l.name for l in links],
+                             router.config.replicas).node_for(
+                                 routing_key(victim))
+            owner_link = next(l for l in links if l.name == owner)
+            owner_link.process.kill()
+            owner_link.process.wait(timeout=30)
+            wire_same(client.analyze(victim), want_batch[0], "fleet reroute")
+            page = parse_prom_text(client.metrics_text())
+            rerouted = counter(page, "ychg_fleet_rerouted_total")
+            check(rerouted >= 1, "fleet: killed the owner but "
+                                 "ychg_fleet_rerouted_total never moved")
+            t0 = time.perf_counter()
+            asyncio.run_coroutine_threadsafe(
+                router.check_workers(), rt._loop).result(timeout=300)
+            restart_s = time.perf_counter() - t0
+            health = client.health()
+            check(all(health["workers"].values()),
+                  f"fleet: restart left workers down: {health['workers']}")
+            wire_same(client.analyze(victim), want_batch[0], "fleet peering")
+            peer_hits = counter(parse_prom_text(client.metrics_text()),
+                                "ychg_cache_peer_hits_total")
+            check(peer_hits >= 1,
+                  f"fleet: the restarted owner served the repeat mask "
+                  f"without a sibling-cache hit (peer hits {peer_hits})")
+            print(f"fleet: killed {owner}, the repeat rerouted to the "
+                  f"survivor byte-identical (ychg_fleet_rerouted_total "
+                  f"{rerouted:.0f}); {owner} restarted in {restart_s:.2f} s "
+                  f"and served the repeat from the survivor's cache "
+                  f"(ychg_cache_peer_hits_total {peer_hits:.0f}), "
+                  f"byte-identical; {card}", flush=True)
+    finally:
+        sup.stop()
+    free()
+
+    t0 = time.perf_counter()
+    slo_smoke(argparse.Namespace(res=SLO_RES, batch=SLO_BATCH, device=DEV))
+    print(f"slo: priority, deadline and quota legs passed on {DEV} "
+          f"({SLO_BATCH} x {SLO_RES}^2 requests, a backlog of "
+          f"{4 * SLO_BATCH} x {2 * SLO_RES}^2) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    free()
+    phase5_s = time.perf_counter() - t_phase
+    print(f"phase 5 (mesh, fleet, slo): {phase5_s:.1f} s", flush=True)
+
+    # 6. for information: one engine call on the device-resident serving
     # batch through each ychg kernel backend, then the paper's comparison:
     # its serial baseline on
     # the host against both card backends on a mask already on the card
@@ -1856,6 +2147,7 @@ def main() -> int:
             "bound_by": main_row["bound_by"],
             "library_ms": None,
             "library_note": LIBRARY_NOTES[name],
+            "mesh_launches": mesh_launches.get(name, 0),
             "device_ms": main_row.get("device_ms"),
             "entry_point_ms": main_row.get("entry_point_ms"),
             "cases": stats[name]["cases"],

@@ -1,8 +1,10 @@
 """`repro_torch.engine` — the port's entry point for image-operator compute.
 
 Build an :class:`Engine` from a frozen :class:`EngineConfig` and a device
-(``"cuda"`` unless the caller asks for ``"cpu"``); call ``analyze`` (one
-mask), ``analyze_batch`` (a stack) or ``analyze_stream`` (an iterable).
+(``"cuda"`` unless the caller asks for ``"cpu"``), optionally with a batch
+mesh (``mesh=repro_torch.sharding.make_batch_mesh()``); call ``analyze``
+(one mask), ``analyze_batch`` (a stack) or ``analyze_stream`` (an
+iterable).
 Every call returns a result that stays on the device; ``.to_host()`` gives
 NumPy arrays, ``.to_summary()`` the op's summary view.
 
@@ -16,6 +18,7 @@ from repro_torch.engine.engine import (
     Engine,
     EngineConfig,
     YCHGConfig,
+    YCHGEngine,
     YCHGResult,
 )
 from repro_torch.engine.registry import (
@@ -53,6 +56,7 @@ __all__ = [
     "OpSpec",
     "UnknownOpError",
     "YCHGConfig",
+    "YCHGEngine",
     "YCHGResult",
     "backend_names",
     "get_backend",

@@ -3,20 +3,21 @@
 Each ``run(imgs, config)`` maps a (B, H, W) tensor stack to the op's
 batched summary, bit-identical to the op's reference (``engine.ops``).
 
-  op       name    batch  runs on     auto-picked on
-  ychg     torch   yes    cpu, cuda   cpu (the plain reference, counterpart
-                                      of ``jax``)
-  ychg     fused   yes    cuda, cpu*  cuda (one launch for the whole stack)
-  ychg     cuda    no     cuda, cpu*  - (the paper's two kernels, two
-                                      launches an image, one host call a
-                                      stack; explicit only)
-  ychg     serial  no     cpu         - (the paper's NumPy CPU baseline)
-  ychg     scalar  no     cpu         - (per-pixel loops; tiny images only)
-  ccl      torch   yes    cpu, cuda   cpu (``kernels.ccl.labels``)
-  ccl      cuda    yes    cuda, cpu*  cuda (``csrc/ccl.cu``, then
-                                      ``_canonicalize``)
-  denoise  torch   yes    cpu, cuda   cpu (``kernels.denoise.denoise``)
-  denoise  cuda    yes    cuda, cpu*  cuda (``csrc/denoise.cu``)
+  op       name    batch  mesh  runs on     auto-picked on
+  ychg     torch   yes    no    cpu, cuda   cpu (the plain reference,
+                                            counterpart of ``jax``)
+  ychg     fused   yes    yes   cuda, cpu*  cuda (one launch for the whole
+                                            stack); cpu too under a mesh
+  ychg     cuda    no     no    cuda, cpu*  - (the paper's two kernels, two
+                                            launches an image, one host call
+                                            a stack; explicit only)
+  ychg     serial  no     no    cpu         - (the paper's NumPy CPU baseline)
+  ychg     scalar  no     no    cpu         - (per-pixel loops; tiny images)
+  ccl      torch   yes    yes   cpu, cuda   cpu (``kernels.ccl.labels``)
+  ccl      cuda    yes    yes   cuda, cpu*  cuda (``csrc/ccl.cu``, then
+                                            ``_canonicalize``)
+  denoise  torch   yes    yes   cpu, cuda   cpu (``kernels.denoise.denoise``)
+  denoise  cuda    yes    yes   cuda, cpu*  cuda (``csrc/denoise.cu``)
 
   * on a CPU tensor a kernel backend runs its kernels' plain versions, as
     the JAX package's kernel backends run in interpret mode off the TPU:
@@ -26,8 +27,9 @@ batched summary, bit-identical to the op's reference (``engine.ops``).
 ``serial`` and ``scalar`` keep NumPy's float32 subnormals as foreground,
 as the JAX package's do (``core.serial``).
 
-None claims ``supports_mesh`` yet: the port has no mesh path, and
-``EngineConfig.mesh_axis`` is kept only so JAX configs map over.
+The ``mesh`` column is the JAX package's ``supports_mesh``, backend for
+backend: a mesh-capable backend is pure per-image math, so the engine may
+split a stack over a :class:`repro_torch.sharding.BatchMesh`.
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ register_backend(BackendSpec(
     priority={"cpu": 100, "cuda": 50},
 ))
 register_backend(BackendSpec(
-    name="fused", run=_run_fused, supports_batch=True, supports_mesh=False,
+    name="fused", run=_run_fused, supports_batch=True, supports_mesh=True,
     device_kinds=("cuda", "cpu"),
     priority={"cuda": 100, "cpu": 40},
 ))
@@ -144,11 +146,11 @@ for _op, _torch, _cuda in [("ccl", _run_ccl_torch, _run_ccl_cuda),
                            ("denoise", _run_denoise_torch, _run_denoise_cuda)]:
     register_backend(BackendSpec(
         op=_op, name="torch", run=_torch, supports_batch=True,
-        supports_mesh=False, device_kinds=("cpu", "cuda"),
+        supports_mesh=True, device_kinds=("cpu", "cuda"),
         priority={"cpu": 100, "cuda": 50},
     ))
     register_backend(BackendSpec(
         op=_op, name="cuda", run=_cuda, supports_batch=True,
-        supports_mesh=False, device_kinds=("cuda", "cpu"),
+        supports_mesh=True, device_kinds=("cuda", "cpu"),
         priority={"cuda": 100, "cpu": 40},
     ))

@@ -21,13 +21,19 @@ device; ``Engine(device="cpu")`` is the only way onto the CPU. The backend
 registry is asked for the engine's own device type (``"cpu"`` or
 ``"cuda"``). Results stay on the device; ``.to_host()`` copies them out.
 
-Not ported yet: the mesh path, ``lower`` and the ``YCHGEngine`` shim.
+``Engine(cfg, mesh=make_batch_mesh())`` splits every stack over the
+devices of a :class:`repro_torch.sharding.BatchMesh`, the counterpart of
+the JAX engine's ``shard_map`` path (``_run_meshed``). ``YCHGEngine``
+remains as a deprecation shim over ``Engine`` (op pinned to ``"ychg"``).
+
+Not ported yet: ``lower``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
@@ -36,6 +42,7 @@ import torch
 from repro_torch.core.ychg import YCHGSummary, narrow_wide_ints
 from repro_torch.engine import ops as engine_ops
 from repro_torch.engine import registry
+from repro_torch.sharding.ychg import BatchMesh, pad_batch
 
 Tensor = torch.Tensor
 
@@ -59,8 +66,7 @@ class EngineConfig:
     block_h            row segment of the split-H kernel.
     dtype              optional dtype name masks are cast to on ingest
                        (None = accept as-is; nonzero = foreground either way).
-    mesh_axis          batch axis name for a mesh (the mesh path is not
-                       ported yet).
+    mesh_axis          batch axis name used when a mesh is attached.
     stream_vmem_budget the reference's switch to its H-streamed kernel, kept
                        so the port routes as the reference does.
     """
@@ -169,15 +175,31 @@ class Engine:
 
     ``Engine()`` serves the ``ychg`` op on the card, resolving the best
     backend per call; ``Engine(op="ccl")`` pins another default op, and
-    every verb accepts ``op=`` for a per-call override.
+    every verb accepts ``op=`` for a per-call override. Attach a batch mesh
+    with ``mesh=`` or ``with_mesh`` to split every stack over its devices
+    with a mesh-capable backend (padding to the mesh size and stripping the
+    pad internally, so callers never see padded-length results). Every
+    mesh device must have the engine's device type.
     """
 
     def __init__(self, config: EngineConfig = EngineConfig(), *,
-                 op: str = "ychg", device: Any = None):
+                 op: str = "ychg", mesh: Optional[BatchMesh] = None,
+                 device: Any = None):
+        if mesh is not None and config.mesh_axis not in mesh.axis_names:
+            raise ValueError(
+                f"mesh has axes {mesh.axis_names}, config.mesh_axis="
+                f"{config.mesh_axis!r}"
+            )
         self.config = config
         self.op = op
         self.device = (_default_device() if device is None
                        else torch.device(device))
+        if mesh is not None and any(d.type != self.device.type
+                                    for d in mesh.devices):
+            raise ValueError(
+                f"every mesh device must have the engine's device type "
+                f"{self.device.type!r}; mesh has {mesh!r}")
+        self.mesh = mesh
         self.platform = self.device.type
         self._cast_dtype = (None if config.dtype is None
                             else _numpy_dtype_to_torch(config.dtype))
@@ -186,6 +208,17 @@ class Engine:
         self._spec_cache: Dict[str, tuple[int, registry.BackendSpec]] = {}
 
     # ------------------------------------------------------------- plumbing
+
+    def with_mesh(self, mesh: Optional[BatchMesh]) -> "Engine":
+        """Same policy and device, batch-split over ``mesh`` (None
+        detaches)."""
+        return Engine(self.config, op=self.op, mesh=mesh, device=self.device)
+
+    def with_config(self, **overrides: Any) -> "Engine":
+        """New engine with ``dataclasses.replace``d config, same op, mesh
+        and device."""
+        return Engine(dataclasses.replace(self.config, **overrides),
+                      op=self.op, mesh=self.mesh, device=self.device)
 
     def resolve_backend(self, op: Optional[str] = None) -> str:
         """Name of the backend this engine dispatches ``op`` to right now."""
@@ -197,7 +230,7 @@ class Engine:
         if cached is not None and cached[0] == gen:
             return cached[1]
         spec = registry.resolve(self.config.backend, platform=self.platform,
-                                op=op)
+                                need_mesh=self.mesh is not None, op=op)
         self._spec_cache[op] = (gen, spec)
         return spec
 
@@ -321,7 +354,51 @@ class Engine:
         # call_count; the dispatch-cost histogram only sees successes
         registry.note_call(spec.name, op)
         t0 = time.monotonic()
-        summary = spec.run(imgs, self.config)
+        if self.mesh is not None:
+            summary = self._run_meshed(spec, opspec, imgs)
+        else:
+            summary = spec.run(imgs, self.config)
         out = opspec.from_summary(summary, batched, record_event(imgs.device))
         registry.note_dispatch(spec.name, time.monotonic() - t0, op)
         return out
+
+    def _run_meshed(self, spec: registry.BackendSpec, opspec, imgs: Tensor):
+        """Run ``spec`` on one chunk of the stack a mesh device, the
+        counterpart of ``shard_map`` over the 1-D batch mesh.
+
+        The stack is padded with blank images (inert end to end for every
+        op: zero pixels form no runs, no components, and denoise to zero)
+        to a multiple of the mesh size, cut into one chunk a mesh entry,
+        each chunk copied to its device and run there (a kernel launches on
+        its tensor's device), and the fields gathered back onto the
+        engine's device without the pad. A chunk that ran on another CUDA
+        device is waited for on the engine's stream before the gather.
+        """
+        x, b = pad_batch(imgs, self.mesh.shape[self.config.mesh_axis])
+        parts = []
+        for chunk, device in zip(x.chunk(self.mesh.size), self.mesh.devices):
+            s = spec.run(chunk.to(device, non_blocking=True), self.config)
+            if device.type == "cuda" and device != imgs.device:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(device))
+                torch.cuda.current_stream(imgs.device).wait_event(done)
+            parts.append(s)
+        return opspec.summary_type(*(
+            torch.cat([getattr(s, f).to(imgs.device, non_blocking=True)
+                       for s in parts])[:b]
+            for f in opspec.fields))
+
+
+class YCHGEngine(Engine):
+    """Deprecated alias for :class:`Engine` pinned to ``op="ychg"``, as in
+    the JAX package; emits a ``DeprecationWarning``."""
+
+    def __init__(self, config: EngineConfig = EngineConfig(), *,
+                 mesh: Optional[BatchMesh] = None, device: Any = None):
+        warnings.warn(
+            "YCHGEngine is deprecated; use repro_torch.engine.Engine "
+            "(op defaults to 'ychg')",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        super().__init__(config, op="ychg", mesh=mesh, device=device)

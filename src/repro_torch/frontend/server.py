@@ -1,9 +1,10 @@
 """Asyncio HTTP/JSON (+ optional length-prefixed RPC) front end.
 
 The port's counterpart of ``repro.frontend.server``, over
-``repro_torch.service``. The port has no fleet yet: its cache has no
-``set_peers``, so that RPC verb answers ``ok: false`` (the reference's
-answer for a cache that cannot peer).
+``repro_torch.service``. Two differences: a cache hit answered to a
+sibling's ``cache_probe`` is copied to the host first (the port's cache
+holds device tensors), and one RPC verb that raises answers a 500 frame
+instead of closing its connection.
 
 `FrontendServer` puts a network edge on
 :class:`repro_torch.service.YCHGService`
@@ -60,8 +61,6 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
-
-import numpy as np
 
 from repro_torch.engine import registry
 from repro_torch.engine.ops import op_names
@@ -544,8 +543,10 @@ class FrontendServer:
         entry = self.service.cache.probe_serialized(skey)
         if entry is None:
             return {"id": rid, "hit": False}
+        # the stored fields live on the engine's device: copy each to the
+        # host (np.asarray of a CUDA tensor raises)
         return {"id": rid, "hit": True, "result": {
-            f: protocol.encode_array(np.asarray(getattr(entry, f)))
+            f: protocol.encode_array(getattr(entry, f).cpu().numpy())
             for f in fields}}
 
     def _set_peers(self, frame: Dict[str, Any]) -> Dict[str, Any]:
@@ -564,6 +565,16 @@ class FrontendServer:
                     "status": 400, "ok": False}
         set_peers(peers)
         return {"id": rid, "ok": True}
+
+    def _rpc_verb(self, op: str, frame: Dict[str, Any]) -> Dict[str, Any]:
+        """Answer one of the synchronous RPC verbs."""
+        if op == "health":
+            m = self.service.metrics()
+            return {"id": frame.get("id"), "status": "ok",
+                    "backend": m.backend, "queue_depth": m.queue_depth}
+        if op == "cache_probe":
+            return self._cache_probe(frame)
+        return self._set_peers(frame)
 
     async def _handle_rpc(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter) -> None:
@@ -648,15 +659,15 @@ class FrontendServer:
                     t = asyncio.ensure_future(run_analyze(frame))
                     tasks.add(t)
                     t.add_done_callback(tasks.discard)
-                elif op == "health":
-                    m = self.service.metrics()
-                    await send({"id": frame.get("id"), "status": "ok",
-                                "backend": m.backend,
-                                "queue_depth": m.queue_depth})
-                elif op == "cache_probe":
-                    await send(self._cache_probe(frame))
-                elif op == "set_peers":
-                    await send(self._set_peers(frame))
+                elif op in ("health", "cache_probe", "set_peers"):
+                    try:
+                        out = self._rpc_verb(op, frame)
+                    except Exception as e:
+                        # one verb's failure answers its own frame; the
+                        # connection and its other calls stay up
+                        out = {"id": frame.get("id"), "error": str(e),
+                               "status": 500}
+                    await send(out)
                 else:
                     await send({"id": frame.get("id"),
                                 "error": f"unknown op {op!r}", "status": 400})

@@ -22,22 +22,32 @@ Usage:
       --out scene_out --ckpt scene_ckpt       # SIGTERM -> checkpoint; rerun resumes
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --scene-smoke --device cpu      # scene end-to-end assert
+  # worker-process fleet behind the consistent-hash router (repro_torch.fleet):
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --fleet 2 --listen 127.0.0.1:8788       # serve until interrupted
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --res 64 --batch 4 --fleet-smoke --device cpu      # fleet end-to-end assert
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --res 64 --batch 4 --slo-smoke --device cpu        # traffic classes assert
 
 The counterpart of ``repro.launch.serve``'s in-process ``ychg`` pass
 (``serve_ychg``), with its ``--op`` and ``--overload`` legs, of its
-``--listen``, ``--connect`` and ``--frontend-smoke`` network modes, and of
-its ``scene`` subcommand and ``--scene-smoke``; :func:`pipeline_pass`
-serves masks through an op chain. Every mode runs the engine on the card
-unless ``--device cpu`` is given. The fleet, SLO and LM modes come in later
-slices.
+``--listen``, ``--connect`` and ``--frontend-smoke`` network modes, of its
+``--fleet``, ``--fleet-smoke`` and ``--slo-smoke`` modes, and of its
+``scene`` subcommand and ``--scene-smoke``; :func:`pipeline_pass` serves
+masks through an op chain. Every mode runs the engine on the card unless
+``--device cpu`` is given; fleet workers get the same ``--device``. The LM
+modes have no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import threading
 import time
+from pathlib import Path
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
@@ -493,6 +503,463 @@ def frontend_smoke(args) -> None:
           "per-bucket shed counter moved", flush=True)
 
 
+def slo_smoke(args) -> None:
+    """End-to-end assert for traffic classes over loopback HTTP: the
+    class/deadline/tenant headers must reach the scheduler and change
+    admission, visibly in the wire answer and on ``/metrics``. The
+    counterpart of ``repro.launch.serve.slo_smoke``:
+
+      1. **priority preemption** — against a parked batch-class backlog,
+         an interactive-class wire request overtakes the backlog: its
+         completion precedes the last batch completion and batch requests
+         are still pending when it returns. The JAX smoke parks the
+         backlog behind the batch bucket's first compile; the port has
+         nothing to compile there, so it parks the backlog explicitly: the
+         engine holds its first batch-class dispatch until the interactive
+         request is admitted and past its micro-batching window, and the
+         completion is read on the service's side (a done-callback on the
+         interactive request's future), where the scheduler's order
+         decides it, not the wire's latency. A deterministic sub-leg (one
+         admission slot, held) then sheds a batch-class wire request and
+         asserts the 429 carries ``kind="overload"`` and
+         ``ychg_shed_class_total{class="batch"}`` moves.
+      2. **deadline shed** — with the drain-rate estimator seeded to
+         exactly 2 requests/s, a wire request with
+         ``X-YCHG-Deadline-Ms: 100`` sheds at admission with
+         ``kind="deadline"`` and the honest Retry-After ``0.5s - 0.1s =
+         0.4s``; a dead-on-arrival ``deadline_ms=0`` probe sheds with the
+         clamp floor (0.05s).
+      3. **tenant quota** — a two-token burst tenant admits 2 of 4 wire
+         requests and sheds the rest with ``kind="quota"`` and the
+         30s-clamped Retry-After, while another tenant admits freely;
+         ``ychg_shed_tenant_total{tenant="acme"}`` counts exactly the
+         sheds.
+
+    Masks are :func:`derived_masks` (distinct rolls of two snowfields).
+    Exits nonzero on any failure.
+    """
+    from repro_torch.engine import Engine
+    from repro_torch.frontend import (
+        FrontendOverloaded,
+        ServerThread,
+        YCHGClient,
+    )
+    from repro_torch.service import ServiceConfig, YCHGService
+
+    res, batch_res = args.res, 2 * args.res
+    engine = Engine(device=args.device)
+    small = iter(derived_masks(res, 16, seed=100))
+
+    def expect_shed(client, kind, **kw):
+        try:
+            client.analyze(next(small), **kw)
+        except FrontendOverloaded as e:
+            if e.kind != kind:
+                raise SystemExit(f"slo smoke: shed carried kind={e.kind!r}, "
+                                 f"wanted {kind!r}")
+            return e
+        raise SystemExit(f"slo smoke: expected a {kind} 429, got a result")
+
+    def counter(text, needle):
+        for line in text.splitlines():
+            if line.startswith(needle):
+                return float(line.rsplit(" ", 1)[1])
+        return 0.0
+
+    # ---- leg 1: priority preemption against a parked batch backlog
+    release = threading.Event()
+    release.set()
+    done_at, batch_futs, box = {}, [], {}
+
+    class ParkingEngine(type(engine)):
+        def analyze_batch(self, stack, **kw):
+            if not release.wait(600):
+                raise RuntimeError("slo smoke: backlog never released")
+            return super().analyze_batch(stack, **kw)
+
+    class RecordingService(YCHGService):
+        """Notes, on the service's side, when the wire's interactive
+        request completes and how many batch requests are pending then."""
+
+        def submit(self, mask, **kw):
+            fut = super().submit(mask, **kw)
+            if kw.get("klass") == "interactive" and batch_futs:
+                fut.add_done_callback(lambda _f: box.update(
+                    t=time.perf_counter(),
+                    pending=sum(1 for f in batch_futs if not f.done())))
+            return fut
+
+    parking = ParkingEngine(engine.config, device=engine.device)
+    cfg = ServiceConfig(bucket_sides=(res, batch_res),
+                        max_batch=args.batch, max_delay_ms=2.0)
+    backlog = derived_masks(batch_res, 4 * args.batch, seed=200)
+    with RecordingService(parking, cfg) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        client.wait_ready(timeout=120.0)
+        client.analyze(next(small), klass="interactive")
+        release.clear()   # the next dispatch parks, and the backlog behind
+        batch_futs += [svc.submit(m, klass="batch") for m in backlog]
+        for i, f in enumerate(batch_futs):
+            f.add_done_callback(
+                lambda _f, i=i: done_at.setdefault(i, time.perf_counter()))
+
+        def interactive():
+            box["out"] = client.analyze(next(small), klass="interactive")
+
+        t = threading.Thread(target=interactive, daemon=True)
+        t.start()
+        want = 2 + len(batch_futs)
+        deadline = time.perf_counter() + 60.0
+        while svc.metrics().submitted < want:
+            if time.perf_counter() > deadline:
+                release.set()
+                raise SystemExit("slo smoke [priority]: the interactive "
+                                 "request was never admitted")
+            time.sleep(0.001)
+        # let the interactive request age past its micro-batching window,
+        # as it does behind the JAX backlog's compile: ready, it outranks
+        # every queued batch flush when the backlog resumes
+        time.sleep(10 * cfg.max_delay_ms / 1e3)
+        release.set()
+        t.join(600)
+        for f in batch_futs:
+            f.result(timeout=600)
+        deadline = time.perf_counter() + 30.0
+        while (len(done_at) < len(batch_futs)
+               and time.perf_counter() < deadline):
+            time.sleep(0.001)   # done-callbacks can lag result() briefly
+        pending = box.get("pending", 0)
+        if ("out" not in box or pending == 0
+                or box["t"] >= max(done_at.values())):
+            raise SystemExit(
+                f"slo smoke [priority]: interactive request did not "
+                f"overtake the batch backlog ({pending} of "
+                f"{len(batch_futs)} batch requests pending at its "
+                f"completion)")
+        print(f"slo smoke: interactive wire request overtook the "
+              f"batch-class backlog ({pending}/{len(batch_futs)} batch "
+              f"requests still pending at its completion) on "
+              f"{engine.device}", flush=True)
+
+    # leg 1b: deterministic class-labelled shed — ONE admission slot,
+    # held by a parked submit, so the batch-class wire request sheds
+    ocfg = ServiceConfig(bucket_sides=(res,), max_batch=args.batch,
+                         max_delay_ms=10_000.0, max_queue_depth=1,
+                         bucket_queue_depth=1, overload_policy="shed")
+    with YCHGService(engine, ocfg) as osvc:
+        holder = osvc.submit(next(small))
+        with ServerThread(osvc) as srv, \
+                YCHGClient("127.0.0.1", srv.port) as client:
+            e = expect_shed(client, "overload", klass="batch")
+            if not e.retry_after_s > 0:
+                raise SystemExit("slo smoke [priority]: overload 429 "
+                                 "carried no positive retry_after_s")
+            shed = counter(client.metrics_text(),
+                           'ychg_shed_class_total{class="batch"}')
+    # the service's close drained the holder without waiting out its delay
+    holder.result(timeout=600)
+    if shed != 1:
+        raise SystemExit(f"slo smoke [priority]: shed_class_total for the "
+                         f"batch class is {shed}, wanted 1")
+    print('slo smoke: wire shed counted under '
+          'ychg_shed_class_total{class="batch"}', flush=True)
+
+    # ---- leg 2: deadline shed with an honest Retry-After. Seed the
+    # drain-rate estimator to exactly 2 req/s on an idle service (depth
+    # 0): predicted wait is (0+1)/2 = 0.5s, so a 100ms deadline sheds with
+    # retry_after = 0.5 - 0.1 = 0.4s exactly.
+    with YCHGService(engine, ServiceConfig(
+            bucket_sides=(res,), max_batch=args.batch)) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        dead = expect_shed(client, "deadline", deadline_ms=0.0)
+        if abs(dead.retry_after_s - 0.05) > 1e-9:
+            raise SystemExit(
+                f"slo smoke [deadline]: dead-on-arrival retry_after_s "
+                f"{dead.retry_after_s} != the 0.05s clamp floor")
+        est = svc._scheduler._drain_rate
+        est.observe(0, now=0.0)
+        est.observe(20, now=10.0)
+        e = expect_shed(client, "deadline", deadline_ms=100.0)
+        if abs(e.retry_after_s - 0.4) > 1e-9:
+            raise SystemExit(
+                f"slo smoke [deadline]: retry_after_s {e.retry_after_s} "
+                f"!= the honest lateness 0.4s (predicted 0.5s - "
+                f"deadline 0.1s)")
+        sheds = counter(client.metrics_text(), "ychg_shed_deadline_total")
+        if sheds != 2:
+            raise SystemExit(f"slo smoke [deadline]: "
+                             f"ychg_shed_deadline_total {sheds}, wanted 2")
+    print("slo smoke: 100ms deadline shed at admission with the honest "
+          "0.4s Retry-After; dead-on-arrival probe shed at the clamp "
+          "floor", flush=True)
+
+    # ---- leg 3: tenant token buckets over the wire. burst=2 at a
+    # starvation refill rate: 2 of 4 "acme" requests admit, 2 shed with
+    # the 30s-clamped Retry-After; "beta" admits freely.
+    tcfg = ServiceConfig(bucket_sides=(res,), max_batch=args.batch,
+                         max_delay_ms=2.0, tenant_rate=0.001,
+                         tenant_burst=2)
+    with YCHGService(engine, tcfg) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        admitted, sheds = 0, 0
+        for _ in range(4):
+            try:
+                client.analyze(next(small), tenant="acme")
+                admitted += 1
+            except FrontendOverloaded as e:
+                if e.kind != "quota":
+                    raise SystemExit(f"slo smoke [quota]: shed carried "
+                                     f"kind={e.kind!r}, wanted 'quota'")
+                if e.retry_after_s != 30.0:
+                    raise SystemExit(
+                        f"slo smoke [quota]: retry_after_s "
+                        f"{e.retry_after_s} != the 30s clamp for a "
+                        f"starvation-rate refill")
+                sheds += 1
+        client.analyze(next(small), tenant="beta")
+        metrics = client.metrics_text()
+        if (admitted, sheds) != (2, 2):
+            raise SystemExit(f"slo smoke [quota]: burst 2 of 4 offered "
+                             f"should admit 2 and shed 2, got "
+                             f"({admitted}, {sheds})")
+        by_tenant = counter(metrics, 'ychg_shed_tenant_total{tenant="acme"}')
+        if by_tenant != sheds or counter(
+                metrics, "ychg_shed_quota_total") != sheds:
+            raise SystemExit(
+                f"slo smoke [quota]: /metrics counted {by_tenant} acme "
+                f"sheds, client saw {sheds}")
+    print("slo smoke: tenant quota admitted the burst, shed the rest "
+          "with kind=quota and the clamped Retry-After; counters tie "
+          "out per tenant", flush=True)
+
+
+def export_pythonpath() -> None:
+    """Put the directory holding ``repro_torch`` first on ``PYTHONPATH`` in
+    ``os.environ``, so that ``python -m repro_torch.fleet.worker`` children
+    import this checkout's package."""
+    import repro_torch
+
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    rest = [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+            if p and p != src]
+    os.environ["PYTHONPATH"] = os.pathsep.join([src, *rest])
+
+
+def _worker_args(args) -> List[str]:
+    """Worker-CLI knobs mirroring this invocation's service knobs; the
+    device goes on to the workers."""
+    wa = ["--buckets", args.buckets if args.buckets else str(args.res),
+          "--max-batch", str(args.batch), "--policy", args.policy]
+    if args.max_queue_depth is not None:
+        wa += ["--max-queue-depth", str(args.max_queue_depth)]
+    if args.bucket_queue_depth is not None:
+        wa += ["--bucket-queue-depth", str(args.bucket_queue_depth)]
+    if args.device is not None:
+        wa += ["--device", args.device]
+    if args.compile_cache:
+        wa += ["--compile-cache", args.compile_cache]
+    if args.trace_dump:
+        wa += ["--trace-dump", args.trace_dump]
+    return wa
+
+
+def _router_config(args, **overrides):
+    from repro_torch.fleet import RouterConfig
+
+    sides = (tuple(int(b) for b in args.buckets.split(","))
+             if args.buckets else (args.res,))
+    knobs = dict(bucket_sides=sides, max_batch=args.batch,
+                 max_queue_depth=args.max_queue_depth,
+                 bucket_queue_depth=args.bucket_queue_depth,
+                 overload_policy=args.policy)
+    knobs.update(overrides)
+    return RouterConfig(**knobs)
+
+
+def serve_fleet(args) -> None:
+    """Serve a worker-process fleet behind the consistent-hash router
+    until interrupted: ``--fleet N`` is ``--listen`` at fleet scale."""
+    from repro_torch.fleet import FleetRouter, FleetSupervisor, RouterThread
+
+    host, port = (_parse_hostport(args.listen) if args.listen
+                  else ("127.0.0.1", 8788))
+    export_pythonpath()
+    sup = FleetSupervisor(args.fleet, worker_args=_worker_args(args))
+    print(f"spawning {args.fleet} workers...", flush=True)
+    try:
+        links = sup.start()
+        router = FleetRouter(links, _router_config(args), host=host,
+                             port=port, supervisor=sup)
+        with RouterThread(router) as rt:
+            workers = ", ".join(
+                f"{l.name}=rpc:{l.rpc_port}" for l in links)
+            print(f"yCHG fleet router on http://{host}:{rt.port} over "
+                  f"{len(links)} workers ({workers})", flush=True)
+            try:
+                threading.Event().wait()
+            except KeyboardInterrupt:
+                print("shutting down fleet", flush=True)
+    finally:
+        sup.stop()
+
+
+def fleet_smoke(args) -> None:
+    """End-to-end assert for the fleet: the router over 2 worker processes
+    on loopback (ephemeral ports everywhere), their engines on
+    ``--device``:
+
+      1. **bit-identity** — a streamed batch through router -> worker RPC
+         is byte-identical (values, dtypes, shapes) to in-process
+         ``YCHGService.submit`` on the same masks;
+      2. **trace** — one traced batch leaves spans of one trace id in the
+         client's, the router's and the workers' flight recorders, in
+         order (skipped under ``YCHG_TRACE=0``);
+      3. **rerouting** — hard-kill the worker owning one mask's keyspace;
+         the repeat analyze fails over to the survivor, still matches,
+         and ``ychg_fleet_rerouted_total`` moves;
+      4. **peering** — restart the dead slot (same ring name, empty
+         cache) and repeat the mask once more: the restarted owner
+         adopts the survivor's cached entry instead of recomputing, and
+         the rolled-up /metrics page shows ``ychg_cache_peer_hits_total``
+         > 0.
+
+    Exits nonzero on any failure.
+    """
+    import asyncio
+
+    from repro_torch.engine import Engine
+    from repro_torch.fleet import (
+        FleetRouter,
+        FleetSupervisor,
+        HashRing,
+        RouterThread,
+    )
+    from repro_torch.fleet.router import routing_key
+    from repro_torch.frontend import YCHGClient
+    from repro_torch.service import YCHGService
+
+    def counter(text, name):
+        for line in text.splitlines():
+            if line.startswith(name + " "):
+                return float(line.rsplit(" ", 1)[1])
+        return 0.0
+
+    def check_identical(leg, got, want_res):
+        if not _host_identical(got, want_res):
+            raise SystemExit(f"fleet smoke [{leg}]: result not "
+                             f"bit-identical through the router")
+
+    masks = derived_masks(args.res, args.batch)
+    with YCHGService(Engine(device=args.device),
+                     _service_config(args)) as svc:
+        want = [svc.submit(m).result(timeout=600).to_host() for m in masks]
+
+    export_pythonpath()
+    sup = FleetSupervisor(2, worker_args=_worker_args(args))
+    try:
+        links = sup.start()
+        # health loop effectively dormant: the smoke drives the death ->
+        # reroute -> restart -> peer-hit sequence deterministically
+        router = FleetRouter(links, _router_config(
+            args, health_interval_s=3600.0), supervisor=sup)
+        with RouterThread(router) as rt, \
+                YCHGClient("127.0.0.1", rt.port) as client:
+            client.wait_ready(timeout=120.0)
+            items = {it.id: it for it in client.analyze_batch(masks)}
+            for i, want_res in enumerate(want):
+                item = items.get(i)
+                if item is None or not item.ok:
+                    raise SystemExit(
+                        f"fleet smoke [identity]: mask {i} failed through "
+                        f"the router: {item and item.error}")
+                check_identical("identity", item.result, want_res)
+            print(f"fleet smoke: {len(masks)} masks through router over 2 "
+                  f"workers bit-identical to in-process submit", flush=True)
+
+            if obs.tracing_enabled():
+                tid = obs.new_trace_id()
+                fresh = derived_masks(args.res, 2, seed=7000)
+                for it in client.analyze_batch(fresh, trace_id=tid):
+                    if not it.ok:
+                        raise SystemExit(f"fleet smoke [trace]: traced "
+                                         f"batch failed: {it.error}")
+                events = list(obs.recorder().chrome_events())
+                events += client.debug_traces().get("traceEvents", [])
+                for l in links:
+                    with YCHGClient(l.host, l.http_port) as wc:
+                        events += wc.debug_traces().get("traceEvents", [])
+                events = [e for e in events
+                          if e.get("args", {}).get("trace_id") == tid]
+                names = {e["name"] for e in events}
+                needed = {"client.encode", "router.admission",
+                          "router.forward", "frontend.parse",
+                          "scheduler.queue_wait", "engine.compute"}
+                if needed - names:
+                    raise SystemExit(f"fleet smoke [trace]: spans missing "
+                                     f"across the fleet recorders: "
+                                     f"{sorted(needed - names)}")
+                pids = {e["pid"] for e in events}
+                if len(pids) < 2:
+                    raise SystemExit(
+                        f"fleet smoke [trace]: trace {tid} never crossed a "
+                        f"process boundary (pids {sorted(pids)})")
+                ts = {}
+                for e in events:   # earliest start per span name
+                    ts[e["name"]] = min(ts.get(e["name"], e["ts"]), e["ts"])
+                slack_us = 100_000   # cross-process wall alignment slack
+                chain = ["client.encode", "router.admission",
+                         "frontend.parse", "engine.compute"]
+                for a, b in zip(chain, chain[1:]):
+                    if ts[b] + slack_us < ts[a]:
+                        raise SystemExit(f"fleet smoke [trace]: span {b!r} "
+                                         f"starts before {a!r}")
+                print(f"fleet smoke: trace {tid} stitches "
+                      f"{len(events)} spans across {len(pids)} processes "
+                      f"(client -> router -> worker)", flush=True)
+
+            ring = HashRing([l.name for l in links],
+                            router.config.replicas)
+            owner = ring.node_for(routing_key(masks[0]))
+            owner_link = next(l for l in links if l.name == owner)
+            owner_link.process.kill()
+            owner_link.process.wait(timeout=30)
+            check_identical("reroute", client.analyze(masks[0]), want[0])
+            rerouted = counter(client.metrics_text(),
+                               "ychg_fleet_rerouted_total")
+            if rerouted < 1:
+                raise SystemExit("fleet smoke [reroute]: killed the owner "
+                                 "but ychg_fleet_rerouted_total never moved")
+            print(f"fleet smoke: killed {owner}, request rerouted to the "
+                  f"survivor and stayed bit-identical", flush=True)
+
+            # one manual health pass: notices the corpse, restarts the
+            # slot under its old name, re-broadcasts the peer set
+            t0 = time.perf_counter()
+            asyncio.run_coroutine_threadsafe(
+                router.check_workers(), rt._loop).result(timeout=300)
+            t_restart = time.perf_counter() - t0
+            health = client.health()
+            if not all(health["workers"].values()):
+                raise SystemExit(f"fleet smoke [peering]: restart left "
+                                 f"workers down: {health['workers']}")
+            check_identical("peering", client.analyze(masks[0]), want[0])
+            peer_hits = counter(client.metrics_text(),
+                                "ychg_cache_peer_hits_total")
+            if peer_hits < 1:
+                raise SystemExit(
+                    "fleet smoke [peering]: restarted owner served the "
+                    "repeat mask without a sibling-cache hit "
+                    f"(ychg_cache_peer_hits_total={peer_hits})")
+            print(f"fleet smoke: restarted {owner} in {t_restart:.2f} s; it "
+                  f"served repeat traffic from the survivor's cache (peer "
+                  f"hits {peer_hits:.0f})", flush=True)
+    finally:
+        sup.stop()
+
+
 def _scene_manifest(args):
     from repro_torch.scene import manifest_from_json, synthetic_manifest
 
@@ -731,12 +1198,31 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--frontend-smoke", action="store_true",
                     help="loopback HTTP end-to-end assert (bit-identical "
                          "round trip, trace, /metrics, 429 on overload)")
+    ap.add_argument("--fleet", type=int, default=None, metavar="N",
+                    help="serve N worker processes behind the "
+                         "consistent-hash router (with --listen for the "
+                         "router's HOST:PORT)")
+    ap.add_argument("--fleet-smoke", action="store_true",
+                    help="loopback fleet end-to-end assert (bit-identity, "
+                         "kill-one-worker rerouting, peered-cache hit)")
+    ap.add_argument("--slo-smoke", action="store_true",
+                    help="traffic-class loopback assert (priority "
+                         "preemption, deadline shed with an honest "
+                         "Retry-After, tenant-quota 429s)")
     ap.add_argument("--buckets", default=None,
                     help="comma-separated bucket sides (default: --res)")
     ap.add_argument("--max-queue-depth", type=int, default=None)
     ap.add_argument("--bucket-queue-depth", type=int, default=None)
     ap.add_argument("--policy", default="block", choices=["block", "shed"],
                     help="overload policy for --listen/--frontend-smoke")
+    ap.add_argument("--compile-cache", default=None, metavar="DIR",
+                    help="build and load the CUDA kernel libraries in DIR "
+                         "(restarted workers load them instead of building "
+                         "them); plumbed to --fleet workers")
+    ap.add_argument("--trace-dump", default=None, metavar="PATH",
+                    help="dump the flight recorder as Chrome-trace JSON to "
+                         "PATH on shutdown; plumbed to --fleet workers "
+                         "(each appends .<pid>)")
     ap.add_argument("--scene-smoke", action="store_true",
                     help="scene tier end-to-end assert (stitch identity, "
                          "kill/resume byte identity, online/offline)")
@@ -763,12 +1249,25 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     scn.add_argument("--max-stacks", type=int, default=None,
                      help="stop (with a checkpoint) after N stacks")
     args = ap.parse_args(argv)
+    if args.trace_dump:
+        obs.configure(dump_path=args.trace_dump)
+    if args.compile_cache:
+        from repro_torch.launch.compilecache import enable_compile_cache
+
+        enable_compile_cache(args.compile_cache)
+        print(f"compile cache: {args.compile_cache}", flush=True)
     if args.command == "scene":
         scene_run(args)
     elif args.scene_smoke:
         scene_smoke(args)
+    elif args.fleet_smoke:
+        fleet_smoke(args)
+    elif args.fleet:
+        serve_fleet(args)
     elif args.frontend_smoke:
         frontend_smoke(args)
+    elif args.slo_smoke:
+        slo_smoke(args)
     elif args.listen:
         serve_listen(args)
     elif args.connect:

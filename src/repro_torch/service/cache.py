@@ -124,7 +124,7 @@ class ResultCache:
     over the RPC ``cache_probe`` verb (``probe_serialized``) — fleet
     workers run with it on; the single-process default stays off and pays
     nothing. ``peer_probe`` is the outbound half: the base class never
-    peers (returns None); ``repro.fleet.peering.PeeredResultCache``
+    peers (returns None); ``repro_torch.fleet.peering.PeeredResultCache``
     overrides it to ask siblings before the service pays compute.
     ``peer_hits``/``peer_misses`` count those outbound probes.
     """

@@ -364,7 +364,8 @@ class YCHGService:
             raise ValueError(f"submit expects an (H, W) mask, got {a.shape}")
         side = pick_bucket_side(a.shape, self.config.bucket_sides_for(op_key))
         bucket = (op_key, side, str(a.dtype))
-        key = make_key(a, backend, self.engine.config, op=op_key)
+        key = make_key(a, backend, self.engine.config,
+                       self.engine.mesh, op=op_key)
         fut: "Future[YCHGResult]" = Future()
         cached = None
         outcome = "miss"
@@ -405,6 +406,36 @@ class YCHGService:
         if outcome == "coalesced":
             # the rider's spans end here; the leader's trace carries the
             # compute stages for the shared result
+            if own:
+                tr.finish()
+            return fut
+        # peer probe OUTSIDE the lock (it is a blocking network call in a
+        # fleet): the leader is already registered, so duplicates arriving
+        # mid-probe coalesce onto it and share the peered result below.
+        # Base caches answer None and cost nothing.
+        t_peer0 = time.monotonic()
+        peered = self.cache.peer_probe(key)
+        t_peer1 = time.monotonic()
+        if hasattr(self.cache, "set_peers"):
+            # only peer-capable caches get a peer_probe stage sample: the
+            # base ResultCache answers None in ~0 time and a flood of those
+            # samples would bury the real probe distribution
+            self._recorder.observe_stage("peer_probe", bucket,
+                                         t_peer1 - t_peer0)
+            tr.add("cache.peer_probe", t_peer0, t_peer1,
+                   outcome="hit" if peered is not None else "miss")
+        if peered is not None:
+            with self._lock:
+                self.cache.put(key, peered)
+                self._leaders.pop(key, None)
+            # the leader + every rider that joined during the probe: all
+            # served without consuming an admission slot (same rule as a
+            # local cache hit); riders recorded their submits when they
+            # coalesced, so completions are recorded per future
+            self._recorder.record_submit()
+            for f in req.futures:
+                self._recorder.record_cache_hit(a.size)
+                _fulfil(f, peered)
             if own:
                 tr.finish()
             return fut
@@ -470,6 +501,8 @@ class YCHGService:
             queue_depth=self._scheduler.backlog(),
             cache_hits=self.cache.hits,
             cache_misses=self.cache.misses,
+            peer_hits=self.cache.peer_hits,
+            peer_misses=self.cache.peer_misses,
             shed=self._scheduler.shed,
             blocked=self._scheduler.blocked,
             shed_by_bucket=tuple(

@@ -7,7 +7,9 @@ kernel modules: the card's probes answer as if one card were present, every
 route through those launches, and ``Engine()`` lands on the CPU while
 resolving backends as it would on the card. It shows that every phase runs
 and that the main path reaches all nine kernels; it says nothing about the
-kernels themselves, which only a run on the card can check.
+kernels themselves, which only a run on the card can check. Phase 5's
+meshes list the CPU, and its fleet workers are real worker processes run
+with ``--device cpu`` (so their ops resolve to the ``torch`` backends).
 """
 
 import json
@@ -68,6 +70,13 @@ REHEARSAL = textwrap.dedent("""
     cs.kernel_device_ms = lambda fn, names, calls=20: (
         0.001, calls * (8 if "diff_kernel<true>" in names else 1))
     cs.PACKED_MAX_SEGMENTS, cs.PACKED_LONG_SEGMENTS = 4, (3, 5)
+    cs.FLEET_BACKENDS = {"ychg": "torch", "ccl": "torch", "denoise": "torch"}
+    cs.SLO_RES, cs.SLO_BATCH = 32, 2
+    import repro_torch.sharding as shard
+    every_device = shard.make_batch_mesh
+    shard.make_batch_mesh = lambda axis_name="data", devices=None: (
+        every_device(axis_name, devices=["cpu"] if devices is None
+                     else devices))
     _build.build = lambda names: {n: 0.0 for n in names}
 
     class NoLibrary:  # the C entry points timed alone do nothing here
@@ -209,6 +218,36 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         assert f"time: {name} [15, 120] uint8: " in out.stdout
     assert "exact: ychg_packed_colscan equals its plain version on" in (
         out.stdout)
+    for leg in ("Engine().with_mesh(make_batch_mesh()) BatchMesh("
+                "axis_name='data', devices=('cpu',)) on [8, 64, 64]",
+                "a mesh naming the card 3 times, B = 5 (padded to a "
+                "multiple of 3) on [5, 64, 64]",
+                "the meshed engine with_config(stream_vmem_budget=0) on "
+                "[8, 64, 64]"):
+        assert f"mesh: {leg} uint8 equals Engine() for ychg, ccl" in (
+            out.stdout), leg
+    assert "ychg [ychg_fused_splith] " in out.stdout
+    mesh = json.loads(out.stdout.split("mesh: launches in the mesh legs ")[1]
+                      .splitlines()[0])
+    assert all(n > 0 for n in mesh.values()), mesh
+    assert ("fleet: 2 worker processes on cpu behind the router"
+            in out.stdout)
+    assert ("byte-identical to an in-process Service(Engine()); completed "
+            "per worker") in out.stdout
+    assert "fleet: wire through the router against the direct" in out.stdout
+    assert "rerouted to the survivor byte-identical" in out.stdout
+    assert "served the repeat from the survivor's cache" in out.stdout
+    for line in ("slo smoke: interactive wire request overtook",
+                 "slo smoke: wire shed counted",
+                 "slo smoke: 100ms deadline shed",
+                 "slo smoke: tenant quota admitted",
+                 "slo: priority, deadline and quota legs passed on cpu",
+                 "phase 5 (mesh, fleet, slo): "):
+        assert line in out.stdout, line
+    for k in kernels:
+        want = k["name"] in ("ychg_fused_full", "ychg_fused_splith", "ccl",
+                             "denoise")
+        assert (k["mesh_launches"] > 0) == want, k["name"]
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]

@@ -1,5 +1,7 @@
-"""The port stands alone: no module of ``repro_torch``, and not
-``chip_smoke.py``, imports JAX or anything of the JAX package ``repro``."""
+"""The port stands alone: no module of ``repro_torch``, not
+``chip_smoke.py``, and not a fleet worker run as ``python -m
+repro_torch.fleet.worker``, imports JAX or anything of the JAX package
+``repro``."""
 
 import os
 import subprocess
@@ -32,7 +34,11 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.checkpoint.checkpointer",
                 "repro_torch.scene.granule", "repro_torch.scene.result",
                 "repro_torch.scene.runner",
-                "repro_torch.scene.bulk"} <= set(names), names
+                "repro_torch.scene.bulk",
+                "repro_torch.sharding.ychg", "repro_torch.fleet.hashring",
+                "repro_torch.fleet.peering", "repro_torch.fleet.router",
+                "repro_torch.fleet.worker",
+                "repro_torch.launch.compilecache"} <= set(names), names
         sys.path.insert(0, sys.argv[1])
         import chip_smoke  # its main() runs only as a script
 
@@ -46,7 +52,45 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 46  # every module was imported
+    assert int(out.stdout.strip()) >= 54  # every module was imported
+
+
+def test_fleet_worker_run_as_a_module_imports_no_jax():
+    """``python -m repro_torch.fleet.worker`` runs up to its handshake (its
+    engine, service, peered cache and servers built), drains on SIGTERM,
+    and has imported nothing of JAX or of ``repro`` on the way."""
+    script = textwrap.dedent("""
+        import os, runpy, signal, sys
+
+        class StopAtHandshake:
+            def __init__(self, out):
+                self.out = out
+            def write(self, text):
+                self.out.write(text)
+                if text.startswith("WORKER READY"):
+                    os.kill(os.getpid(), signal.SIGTERM)
+                return len(text)
+            def flush(self):
+                self.out.flush()
+
+        sys.stdout = StopAtHandshake(sys.stdout)
+        sys.argv = ["repro_torch.fleet.worker", "--device", "cpu",
+                    "--buckets", "16"]
+        runpy.run_module("repro_torch.fleet.worker", run_name="__main__",
+                         alter_sys=True)
+        assert "repro_torch.fleet.peering" in sys.modules
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+        print("clean")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[0].startswith("WORKER READY rpc=") and lines[-1] == "clean"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
