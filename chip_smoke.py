@@ -126,7 +126,27 @@ each of which fails the run (non-zero exit, no result line) when it fails:
   6. the paper's comparison, for information: its serial NumPy baseline
      on the host against the ``cuda`` and ``fused`` backends on the card,
      at each resolution of the workload up to 12000^2 and the 21000^2
-     scene, all three equal.
+     scene, all three equal;
+  7. ``Engine.lower``, the dry run, the data pipeline and the examples,
+     every launch counter set to 0 just before: eleven cells (the serving
+     batch for ychg on ``fused``, ``cuda`` and ``torch``, for ccl and
+     denoise on ``cuda`` and ``torch``; the scene and the tall strip for
+     ychg on ``fused`` and ``cuda``) lowered and compiled, first with
+     their sources built by nvcc into an empty directory, then cached,
+     ``torch.cuda.memory_allocated()`` the same before and after each;
+     each cell run once, its launches equal to the lowering's, every
+     field's shape and dtype equal to ``out_info``, and for the ychg
+     kernel routes and denoise on ``cuda`` the peak above the stack
+     between the output's bytes and the reckoning (the bytes requested
+     exactly; the blocks held with each tensor rounded up to 512 B and
+     the caching allocator's unsplit remainder of a block above 1 MiB);
+     ``launch.dryrun.run_ychg_cells`` up to 21000^2 at B = 8, every cell
+     ok and nothing allocated; an 8192^2 snowfield in 512^2 tiles through
+     ``Prefetcher``, ``ychg_stats`` on the fused engine and
+     ``filter_empty_tiles``, one ``ychg_fused_full`` launch a batch and
+     the stats equal to the ``torch`` engine's, and ``anyres_select``
+     equal too; the five examples (``python -m
+     repro_torch.examples.<name>``) run together, each exiting 0.
 
 It prints the kernels' JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.
@@ -150,29 +170,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: HBM3 rate, the float32 rate outside the
-# tensor cores (an FMA counts as two operations), and the simple int32 rate:
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_OPS_PER_S = 67e12
-PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
-OPS_PER_PIXEL = 3          # ychg: compare, and-not, add
-# packed ychg: shift, a three-input logic op (b & ~(s | carry)), popcount,
-# add, and the shift that takes the next byte's carry
-PACKED_OPS_PER_BYTE = 5
-PACK_OPS_PER_PIXEL = 3     # pack_rows: compare, shift, add
-DIFF_OPS_PER_COLUMN = 5    # ychg_diff: subtract, compare, two max, negate
-# ychg_diff's batch-entry instantiation: the same, the doubled cut vertex
-# and the two sums of the totals
-FINISH_OPS_PER_COLUMN = DIFF_OPS_PER_COLUMN + 3
-# denoise: 8 + 7 adds, 8 squares, 1 FMA (2), 2 multiplies by 1/9, sqrt,
-# subtract, abs, multiply by TAU, compare
-DENOISE_FLOPS_PER_PIXEL = 32
-# ccl: foreground test and store (init); two neighbour tests, index
-# arithmetic and at least one find of two loads per link (merge); one find
-# and store (flatten)
-CCL_OPS_PER_PIXEL = 12
-
+# the kernels' bound column comes from repro_torch.launch.roofline (the
+# H100's rates and each kernel's work), imported in main(), so that this
+# script and Engine.lower's cost analysis reckon alike
 SERVE_RES, SERVE_BATCH = 8192, 8
 SCENE_RES, SCENE_HYPEREDGES = 21000, 4_124_319
 SCENE_BLOCK_H = 2048       # EngineConfig.block_h default
@@ -383,82 +383,6 @@ def kernel_device_ms(fn, names: tuple, calls: int = 20) -> tuple[float, int]:
     check(launches > 0 and total_us > 0,
           f"torch.profiler saw no device time of {names[0]}")
     return total_us / launches / 1e3, launches
-
-
-def _bound(nbytes: float, t_ops: float) -> tuple[float, str, int]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", int(nbytes))
-
-
-def bound(x) -> tuple[float, str, int]:
-    """Least time (ms) the yCHG kernels need for one call on ``x`` (B, H,
-    W): each input byte read once, each output byte written once, against
-    the integer work per pixel; and the byte count."""
-    b, _, w = x.shape
-    nbytes = x.numel() * x.element_size() + b * w * (3 * 4 + 1) + b * 2 * 4
-    return _bound(nbytes, OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
-
-
-def bound_colscan(x) -> tuple[float, str, int]:
-    """The same for step 1 on one (H, W) mask: the mask read once, 4 B a
-    column of int32 runs written."""
-    nbytes = x.numel() * x.element_size() + x.shape[-1] * 4
-    return _bound(nbytes, OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
-
-
-def bound_diff(runs) -> tuple[float, str, int]:
-    """The same for step 2: (W,) int32 runs read once, a bool and two
-    int32 a column written."""
-    w = runs.shape[0]
-    return _bound(w * 4 + w * (1 + 4 + 4),
-                  DIFF_OPS_PER_COLUMN * w / PEAK_INT32_OPS_PER_S)
-
-
-def bound_finish(runs) -> tuple[float, str, int]:
-    """The same for the batch entry's step-2 kernel on one mask's (W,)
-    runs: the runs read once; the cut vertices, births and deaths (int32),
-    the transitions (bool) and the two int32 totals written once."""
-    w = runs.shape[-1]
-    return _bound(w * 4 + w * (4 + 1 + 4 + 4) + 2 * 4,
-                  FINISH_OPS_PER_COLUMN * w / PEAK_INT32_OPS_PER_S)
-
-
-def bound_denoise(x) -> tuple[float, str, int]:
-    """The same for denoise: input read once, 4 B/px of float32 written,
-    against its float32 work per pixel."""
-    nbytes = x.numel() * (x.element_size() + 4)
-    return _bound(nbytes,
-                  DENOISE_FLOPS_PER_PIXEL * x.numel() / PEAK_FP32_OPS_PER_S)
-
-
-def bound_ccl(x) -> tuple[float, str, int]:
-    """The same for ccl: input read once, 4 B/px of int32 labels written,
-    against its integer work per pixel."""
-    nbytes = x.numel() * (x.element_size() + 4)
-    return _bound(nbytes, CCL_OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
-
-
-def bound_packed_colscan(p) -> tuple[float, str, int]:
-    """The same for the packed scan on one (ceil(H/8), W) uint8 mask: each
-    packed byte read once, 4 B a column of int32 runs written."""
-    nbytes = p.numel() + p.shape[-1] * 4
-    return _bound(nbytes, PACKED_OPS_PER_BYTE * p.numel() / PEAK_INT32_OPS_PER_S)
-
-
-def bound_packed_fused(p) -> tuple[float, str, int]:
-    """The same for the packed fused kernel: runs, cut vertices, births and
-    deaths (int32) and transitions (bool) a column, two int32 totals."""
-    nbytes = p.numel() + p.shape[-1] * (4 * 4 + 1) + 2 * 4
-    return _bound(nbytes, PACKED_OPS_PER_BYTE * p.numel() / PEAK_INT32_OPS_PER_S)
-
-
-def bound_pack_rows(x) -> tuple[float, str, int]:
-    """The same for ``pack_rows``: the (H, W) mask read once, its
-    (ceil(H/8), W) uint8 packing written once."""
-    h, w = x.shape
-    nbytes = x.numel() * x.element_size() + -(-h // 8) * w
-    return _bound(nbytes, PACK_OPS_PER_PIXEL * x.numel() / PEAK_INT32_OPS_PER_S)
 
 
 def float_err(got, want, label: str) -> tuple[float, int]:
@@ -876,6 +800,288 @@ def packed_row_cases(np, torch):
     return cases
 
 
+# phase 7: Engine.lower, the dry run, the pipeline and the examples. The
+# cells lowered and run: (label, op, backend); the inputs by label
+LOWER_CELLS = (
+    ("serving batch", "ychg", "fused"), ("serving batch", "ychg", "cuda"),
+    ("serving batch", "ychg", "torch"), ("serving batch", "ccl", "cuda"),
+    ("serving batch", "ccl", "torch"), ("serving batch", "denoise", "cuda"),
+    ("serving batch", "denoise", "torch"), ("scene", "ychg", "fused"),
+    ("scene", "ychg", "cuda"), ("tall strip", "ychg", "fused"),
+    ("tall strip", "ychg", "cuda"))
+# the cells whose peak memory must lie within the reckoning: the kernel
+# routes that allocate nothing but their tensors (ccl's re-ranking runs
+# PyTorch's own scan kernels, whose temporaries the plan cannot see)
+PEAK_CHECKED = {("ychg", "fused"), ("ychg", "cuda"), ("denoise", "cuda")}
+ALLOC_ROUND = 512          # the caching allocator's block granularity
+# the caching allocator splits a cached block above 1 MiB only when more
+# than 1 MiB would remain, so a tensor above 1 MiB may hold up to 1 MiB
+# more (chip run 1, PR 20: the two-kernel route's 1,114,176-byte buffer
+# held a 1,498,624-byte block); the bytes requested are checked exactly
+ALLOC_UNSPLIT = 1 << 20
+# the engines' split-H budget (EngineConfig's default): the tall strip
+# takes split-H, the serving batch and the scene whole columns
+STREAM_VMEM_BUDGET = 4 * 1024 * 1024
+DRYRUN_MAX_RES = 21000
+PIPELINE_TILE, ANYRES_TILE, ANYRES_K = 512, 1024, 5
+EXAMPLES = ("quickstart", "satellite_roi", "roi_pipeline",
+            "roi_service_http", "roi_scene_bulk")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
+    """Phase 7: ``Engine.lower`` and compile on the card, allocating
+    nothing; each cell run once against its plan (launches, output types,
+    peak memory); the workload's dry run; the data pipeline at the serving
+    width; the five examples as processes. Returns each kernel's launches
+    in the phase (counted from zero; the examples launch in their own
+    processes)."""
+    from repro_torch.data.pipeline import (
+        Prefetcher,
+        anyres_select,
+        filter_empty_tiles,
+        ychg_stats,
+    )
+    from repro_torch.configs.ychg_modis import config as workload_config
+    from repro_torch.engine import Engine, EngineConfig
+    from repro_torch.engine import ops as engine_ops
+    from repro_torch.examples.satellite_roi import tile_stream
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ccl as kccl
+    from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import ychg_colscan as kc
+    from repro_torch.kernels import ychg_fused as kf
+    from repro_torch.kernels import ychg_packed as kp
+    from repro_torch.launch.compilecache import enable_compile_cache
+    from repro_torch.launch.dryrun import run_ychg_cells
+    from repro_torch.launch.serve import export_pythonpath
+
+    t_phase = time.perf_counter()
+    modules = (kf, kc, kdn, kccl, kp)
+    for module in modules:
+        module.reset_launch_counts()
+
+    def counts() -> dict:
+        return {k: v for m in modules for k, v in m.LAUNCHES.items()}
+
+    def allocated() -> int:
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    def requested() -> tuple:
+        """Bytes the tensors asked of the allocator: now and at the peak."""
+        stats = torch.cuda.memory_stats()
+        return (stats.get("requested_bytes.all.current", 0),
+                stats.get("requested_bytes.all.peak", 0))
+
+    shapes = {"serving batch": (SERVE_BATCH, SERVE_RES, SERVE_RES),
+              "scene": (1, SCENE_RES, SCENE_RES),
+              "tall strip": (1, TALL_MASKS * SERVE_RES, SERVE_RES)}
+    engines = {(op, backend): Engine(EngineConfig(
+        backend=backend, stream_vmem_budget=STREAM_VMEM_BUDGET), op=op)
+        for _, op, backend in LOWER_CELLS}
+
+    # lowering and compiling allocate nothing: first cold, each kernel
+    # cell's sources built by nvcc into an empty directory, then cached
+    built_in = _build.BUILD_DIR
+    compiled = {}
+    with tempfile.TemporaryDirectory() as cold_dir:
+        enable_compile_cache(cold_dir)
+        for source in ("ychg_fused", "ychg_colscan", "ccl", "denoise"):
+            _build._LIBS.pop(source, None)
+        try:
+            for temp in ("cold", "cached"):
+                for label, op, backend in LOWER_CELLS:
+                    before = allocated()
+                    t0 = time.perf_counter()
+                    lowered = engines[op, backend].lower(shapes[label])
+                    t1 = time.perf_counter()
+                    c = lowered.compile()
+                    t2 = time.perf_counter()
+                    after = allocated()
+                    check(after == before,
+                          f"lower [{label}, {op}, {backend}] allocated "
+                          f"{after - before} bytes on the card")
+                    compiled[label, op, backend] = c
+                    if backend in ("fused", "cuda") and op == "ychg":
+                        route = "splith" if label == "tall strip" else "full"
+                        check(c.route == route,
+                              f"lower [{label}, {op}, {backend}] routes "
+                              f"{c.route}, not {route}")
+                    cost = c.cost_analysis()
+                    print(f"lower: {op} [{backend}] {label} "
+                          f"{list(shapes[label])} uint8 ({temp}): lower "
+                          f"{(t1 - t0) * 1e3:.3f} ms, compile "
+                          f"{(t2 - t1) * 1e3:.3f} ms (nvcc "
+                          f"{json.dumps(c.build_seconds)}), route "
+                          f"{c.route}, launches "
+                          f"{json.dumps(cost['launches'])}, bytes "
+                          f"{cost['bytes accessed']:.0f} (kernels "
+                          f"{cost['kernel bytes']}, ops {cost['op bytes']}); "
+                          f"memory_allocated +0", flush=True)
+        finally:
+            _build.BUILD_DIR = built_in
+
+    # the lowering predicts the run: launches, output types, peak memory
+    inputs = {"serving batch": torch.from_numpy(
+        np.stack(serve_masks[:SERVE_BATCH])).to(DEV)}
+    inputs["tall strip"] = inputs["serving batch"][:TALL_MASKS].reshape(
+        shapes["tall strip"])
+    inputs["scene"] = torch.from_numpy(scene).to(DEV)[None]
+    measure_peak = DEV == "cuda"   # a CPU keeps no allocator statistics
+    for label, op, backend in LOWER_CELLS:
+        c = compiled[label, op, backend]
+        mem = c.memory_analysis()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = counts()
+        torch.cuda.reset_peak_memory_stats()
+        base, asked = allocated(), requested()[0]
+        res = engines[op, backend].analyze_batch(
+            inputs[label]).block_until_ready()
+        peak = torch.cuda.max_memory_allocated() - base
+        asked_peak = requested()[1] - asked
+        delta = {k: n - before[k] for k, n in counts().items()
+                 if n != before[k]}
+        check(delta == c.cost_analysis()["launches"],
+              f"run [{label}, {op}, {backend}] launched {delta}, the "
+              f"lowering said {c.cost_analysis()['launches']}")
+        for f in engine_ops.get_op(op).fields:
+            want, got = getattr(c.out_info, f), getattr(res, f)
+            check(tuple(got.shape) == want.shape and got.dtype == want.dtype,
+                  f"run [{label}, {op}, {backend}] field {f} is "
+                  f"{got.dtype} {tuple(got.shape)}, out_info "
+                  f"{want.dtype} {want.shape}")
+        rounded = hi = None
+        if mem.temp_size_in_bytes is not None:
+            blocks = [-(-a.nbytes // ALLOC_ROUND) * ALLOC_ROUND
+                      for a in c.lowered.plan.allocations]
+            rounded = sum(blocks)
+            hi = rounded + sum(ALLOC_UNSPLIT for n in blocks
+                               if n > ALLOC_UNSPLIT)
+        if measure_peak and (op, backend) in PEAK_CHECKED:
+            check(mem.output_size_in_bytes <= peak <= hi,
+                  f"run [{label}, {op}, {backend}] peak {peak} B above the "
+                  f"stack, outside [{mem.output_size_in_bytes}, {hi}]")
+            most = mem.output_size_in_bytes + mem.temp_size_in_bytes
+            check(mem.output_size_in_bytes <= asked_peak <= most,
+                  f"run [{label}, {op}, {backend}] requested peak "
+                  f"{asked_peak} B, outside [{mem.output_size_in_bytes}, "
+                  f"{most}]")
+        peak_text = (f"{peak} B (requested {asked_peak} B)" if measure_peak
+                     else "not measured")
+        print(f"run: {op} [{backend}] {label}: launches {json.dumps(delta)} "
+              f"as lowered, fields as out_info; peak above the stack "
+              f"{peak_text} against output "
+              f"{mem.output_size_in_bytes} B, output + temp "
+              f"{mem.output_size_in_bytes + (mem.temp_size_in_bytes or 0)} B"
+              f" (temp {mem.temp_size_in_bytes}), each tensor rounded up to "
+              f"{ALLOC_ROUND} B {rounded}, with the allocator's unsplit "
+              f"remainders {hi}"
+              + ("; checked" if measure_peak and (op, backend) in PEAK_CHECKED
+                 else ""), flush=True)
+        del res
+    del inputs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the workload's dry run: every resolution at its batch, nothing
+    # allocated (8 x 21000^2 is 3.5 GB)
+    before = allocated()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        failed = run_ychg_cells(out_dir, max_res=DRYRUN_MAX_RES, device=DEV)
+        records = [json.loads(Path(p).read_text()) for p in
+                   glob.glob(os.path.join(out_dir, "*.json"))]
+    dry_s = time.perf_counter() - t0
+    check(allocated() == before, "the dry run allocated on the card")
+    wl = workload_config()
+    want_res = sorted(r for r in wl.resolutions if r <= DRYRUN_MAX_RES)
+    check(failed == 0 and all(r["ok"] for r in records)
+          and sorted(r["resolution"] for r in records) == want_res
+          and all(r["batch"] == wl.batch for r in records),
+          f"dry run: {failed} failed cells, "
+          f"{[(r['resolution'], r['ok']) for r in records]}")
+    for r in sorted(records, key=lambda r: r["resolution"]):
+        print(f"dryrun: b{r['batch']} {r['resolution']}^2 [{r['backend']}, "
+              f"route {r['route']}]: build s {json.dumps(r['build_s'])}, "
+              f"bytes {r['cost']['bytes_accessed']:.0f}, bound "
+              f"{r['bound_ms']:.4f} ms, launches {json.dumps(r['kernels'])}, "
+              f"argument {r['memory']['argument_size_in_bytes']} B never "
+              f"allocated", flush=True)
+    print(f"dryrun: {len(records)} cells ok in {dry_s:.2f} s; "
+          f"memory_allocated unchanged; {card}", flush=True)
+
+    # the pipeline at the serving width: one fused launch a batch, each
+    # batch's stats equal to the torch engine's on the card
+    fused = Engine(EngineConfig(backend="fused"))
+    plain = Engine(EngineConfig(backend="torch"))
+    mask = serve_masks[0]
+    n_batches = n_tiles = n_kept = 0
+    t0 = time.perf_counter()
+    for batch in Prefetcher(tile_stream(mask, PIPELINE_TILE), depth=2):
+        launched = kf.LAUNCHES["ychg_fused_full"]
+        stats = ychg_stats(batch, engine=fused)
+        kept = filter_empty_tiles(batch, stats=stats)
+        check(kf.LAUNCHES["ychg_fused_full"] - launched == 1,
+              "pipeline: a batch took other than one ychg_fused_full launch")
+        n_batches += 1
+        n_tiles += len(batch)
+        n_kept += len(kept)
+    pipe_s = time.perf_counter() - t0
+    for batch in tile_stream(mask, PIPELINE_TILE):
+        got, want = (ychg_stats(batch, engine=fused),
+                     ychg_stats(batch, engine=plain))
+        check(all(got[k].dtype == want[k].dtype
+                  and np.array_equal(got[k], want[k]) for k in want),
+              "pipeline: fused stats differ from the torch engine's")
+    picks = anyres_select(mask, ANYRES_TILE, ANYRES_K, engine=fused)
+    check(picks == anyres_select(mask, ANYRES_TILE, ANYRES_K, engine=plain),
+          "pipeline: anyres_select differs from the torch engine's ranking")
+    print(f"pipeline: {SERVE_RES}^2 snowfield in {PIPELINE_TILE}^2 tiles, "
+          f"{n_batches} batches of up to {SERVE_BATCH} through Prefetcher -> "
+          f"ychg_stats [fused] -> filter_empty_tiles: {n_tiles} tiles, kept "
+          f"{n_kept}, one ychg_fused_full launch a batch, stats equal to the "
+          f"torch engine's; {n_tiles / pipe_s:.1f} tiles/s; anyres_select "
+          f"tile {ANYRES_TILE} k {ANYRES_K} {picks} equal; {card}",
+          flush=True)
+
+    # the examples, as a user runs them, all five at once
+    export_pythonpath()
+    flag = ["--device", "cpu"] if DEV == "cpu" else []
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", *flag],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        out, err = outs.get(name, ("", ""))
+        check(proc.returncode == 0,
+              f"example {name} exited {proc.returncode}: {err[-2000:]}")
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        print(f"example: {name} exit 0; last line: {last}", flush=True)
+    print(f"examples: all {len(EXAMPLES)} exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s (run together)", flush=True)
+
+    launches = counts()
+    for name in ("ychg_fused_full", "ychg_fused_splith", "ychg_colscan_full",
+                 "ychg_colscan_splith", "ychg_diff", "ccl", "denoise"):
+        check(launches[name] > 0, f"phase 7 launched {name} no time")
+    print(f"phase 7 (lower, dry run, pipeline, examples): "
+          f"{time.perf_counter() - t_phase:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -907,6 +1113,17 @@ def main() -> int:
     from repro_torch.kernels import ychg_colscan as kc
     from repro_torch.kernels import ychg_fused as kf
     from repro_torch.kernels import ychg_packed as kp
+    from repro_torch.launch.roofline import (
+        bound,
+        bound_ccl,
+        bound_colscan,
+        bound_denoise,
+        bound_diff,
+        bound_finish,
+        bound_pack_rows,
+        bound_packed_colscan,
+        bound_packed_fused,
+    )
     from repro_torch.launch.serve import (
         check_metrics_page,
         derived_masks,
@@ -2131,6 +2348,10 @@ def main() -> int:
         del outs
     free()
 
+    # 7. Engine.lower, the dry run, the pipeline and the examples
+    slice_launches = lowering_phase(np, torch, card, serve_masks, scene)
+    free()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = timings[name][0]
@@ -2148,6 +2369,7 @@ def main() -> int:
             "library_ms": None,
             "library_note": LIBRARY_NOTES[name],
             "mesh_launches": mesh_launches.get(name, 0),
+            "lower_phase_launches": slice_launches[name],
             "device_ms": main_row.get("device_ms"),
             "entry_point_ms": main_row.get("entry_point_ms"),
             "cases": stats[name]["cases"],

@@ -11,6 +11,11 @@ kernel of ``repro_torch.kernels`` is held to, bit for bit, dtypes included.
           ``births = max(delta, 0)``, ``deaths = max(-delta, 0)``,
           ``transitions = delta != 0``.
 
+``analyze_batched`` is ``analyze`` under the name the JAX package gives its
+(B, H, W) form. The JAX package's ``analyze_jit`` (``jax.jit(analyze)``)
+has no counterpart: PyTorch runs these ops eagerly, and the card's compiled
+paths are the kernels of ``repro_torch.kernels``.
+
 Dtypes follow the JAX package, which runs with x64 off: every count is
 int32 and ``transitions`` is bool. ``torch.sum`` of int32 or bool returns
 int64, so every reduction here names ``dtype=torch.int32``. Images may be
@@ -46,6 +51,11 @@ def narrow_wide_ints(x: Tensor) -> Tensor:
     return x
 
 
+def narrowed(dtype: torch.dtype) -> torch.dtype:
+    """The dtype :func:`narrow_wide_ints` gives a tensor of ``dtype``."""
+    return _NARROWED.get(dtype, dtype)
+
+
 def foreground(img: Tensor) -> Tensor:
     """The reference's foreground test, ``img != 0`` as the JAX package
     computes it; a bool tensor of ``img``'s shape.
@@ -70,6 +80,28 @@ def foreground(img: Tensor) -> Tensor:
     return img != 0
 
 
+def foreground_passes(dtype: torch.dtype) -> tuple[tuple[str, int, int], ...]:
+    """The elementwise passes :func:`foreground` runs on a tensor of
+    ``dtype``, each as (what, bytes read a pixel, bytes written a pixel);
+    every written tensor is a new allocation. Kept beside
+    :func:`foreground` so that a plan reckoned from shapes alone
+    (``kernels.plan``) follows it step for step."""
+    if dtype == torch.bool:
+        return ()
+    passes = []
+    size = dtype.itemsize
+    if narrowed(dtype) != dtype:
+        passes.append(("low 32 bits", size, 4))
+        size = 4
+    if dtype == torch.float64:
+        passes.append(("float32 copy", size, 4))
+        dtype, size = torch.float32, 4
+    if dtype == torch.float32:
+        passes.append(("exponent bits", size, 4))
+    passes.append(("!= 0", size, 1))
+    return tuple(passes)
+
+
 def _shift_down(x: Tensor, dim: int) -> Tensor:
     """``x`` moved one step along ``dim``, the vacated first slot zero."""
     first = torch.zeros_like(x.narrow(dim, 0, min(1, x.shape[dim])))
@@ -82,6 +114,12 @@ def column_runs(img: Tensor) -> Tensor:
     # a run starts at row i where x[i] & ~x[i-1]; row 0 starts one if set
     rising = x & ~_shift_down(x, -2)
     return torch.sum(rising, dim=-2, dtype=torch.int32)
+
+
+def cut_vertices(img: Tensor) -> Tensor:
+    """Per-column cut-vertex count: 2 per maximal run (top + bottom vertex),
+    (..., W) int32."""
+    return 2 * column_runs(img)
 
 
 def hyperedge_transitions(runs: Tensor) -> dict[str, Tensor]:
@@ -121,6 +159,18 @@ FIELD_LAYOUT = {"runs": "int32 plane", "cut_vertices": "int32 plane",
                 "n_transitions": "int32 total"}
 
 
+def _by_kind(fields: tuple[str, ...]) -> tuple[list, list, list]:
+    """The int32 planes, int32 totals and bool planes among ``fields``."""
+    return tuple([f for f in fields if FIELD_LAYOUT[f] == kind]
+                 for kind in ("int32 plane", "int32 total", "bool plane"))
+
+
+def zeroed_nbytes(fields: tuple[str, ...], b: int, w: int) -> int:
+    """Bytes of the one buffer :func:`zeroed_outputs` allocates."""
+    planes, totals, flags = _by_kind(fields)
+    return 4 * b * (w * len(planes) + len(totals)) + b * w * len(flags)
+
+
 def zeroed_outputs(fields: tuple[str, ...], b: int, w: int,
                    device: torch.device) -> dict[str, Tensor]:
     """The named summary fields for B images W wide, in the order given, as
@@ -128,11 +178,9 @@ def zeroed_outputs(fields: tuple[str, ...], b: int, w: int,
     plane is (B, W), a bool plane (B, W), an int32 total (B,). The CUDA
     kernels write into them, and add into the totals (split-H into the
     runs too)."""
-    by_kind = {kind: [f for f in fields if FIELD_LAYOUT[f] == kind]
-               for kind in ("int32 plane", "int32 total", "bool plane")}
-    planes, totals, flags = by_kind.values()
+    planes, totals, flags = _by_kind(fields)
     n32 = b * (w * len(planes) + len(totals))
-    buf = torch.zeros(4 * n32 + b * w * len(flags), dtype=torch.uint8,
+    buf = torch.zeros(zeroed_nbytes(fields, b, w), dtype=torch.uint8,
                       device=device)
     i32 = buf[:4 * n32].view(torch.int32)
     views = dict(zip(planes, i32[:b * w * len(planes)].view(len(planes), b,
@@ -156,6 +204,12 @@ def analyze(img: Tensor) -> YCHGSummary:
         n_hyperedges=torch.sum(t["births"], dim=-1, dtype=torch.int32),
         n_transitions=torch.sum(t["transitions"], dim=-1, dtype=torch.int32),
     )
+
+
+def analyze_batched(imgs: Tensor) -> YCHGSummary:
+    """Explicit batched form for (B, H, W) stacks: the same math as
+    :func:`analyze`."""
+    return analyze(imgs)
 
 
 def check_conservation(summary: YCHGSummary) -> Tensor:

@@ -26,7 +26,10 @@ devices of a :class:`repro_torch.sharding.BatchMesh`, the counterpart of
 the JAX engine's ``shard_map`` path (``_run_meshed``). ``YCHGEngine``
 remains as a deprecation shim over ``Engine`` (op pinned to ``"ychg"``).
 
-Not ported yet: ``lower``.
+``lower(stack_shape)`` is the counterpart of ``jax.jit(run).lower``: it
+reckons a cell's output types, bytes and launches from the shape alone
+and, compiled, builds the route's CUDA kernels, allocating nothing on the
+device (``engine.lowering``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ import torch
 from repro_torch.core.ychg import YCHGSummary, narrow_wide_ints
 from repro_torch.engine import ops as engine_ops
 from repro_torch.engine import registry
+from repro_torch.engine.lowering import Lowered, ShapeDtype
 from repro_torch.sharding.ychg import BatchMesh, pad_batch
 
 Tensor = torch.Tensor
@@ -240,12 +244,17 @@ class Engine:
         # 64-bit integers keep their low 32 bits, as jnp.asarray does with
         # x64 off: host data before the copy, tensors on the device
         if isinstance(imgs, torch.Tensor):
-            x = narrow_wide_ints(imgs.to(self.device))
-        else:
-            a = np.ascontiguousarray(imgs)
-            if not a.flags.writeable:
-                a = a.copy()
-            x = narrow_wide_ints(torch.from_numpy(a)).to(self.device)
+            return self._conform(imgs.to(self.device))
+        a = np.ascontiguousarray(imgs)
+        if not a.flags.writeable:
+            a = a.copy()
+        return self._conform(narrow_wide_ints(torch.from_numpy(a)).to(
+            self.device))
+
+    def _conform(self, x: Tensor) -> Tensor:
+        """``x`` with 64-bit integers narrowed and the config's cast
+        applied: the dtype every backend sees."""
+        x = narrow_wide_ints(x)
         if self._cast_dtype is not None and x.dtype != self._cast_dtype:
             x = narrow_wide_ints(x.to(self._cast_dtype))
         return x
@@ -387,6 +396,51 @@ class Engine:
             torch.cat([getattr(s, f).to(imgs.device, non_blocking=True)
                        for s in parts])[:b]
             for f in opspec.fields))
+
+    # ------------------------------------------------------------ tooling
+
+    def lower(self, stack_shape: tuple[int, int, int],
+              dtype: Any = torch.uint8, op: Optional[str] = None) -> Lowered:
+        """Lower this engine's batched path for an abstract (B, H, W) stack.
+
+        The counterpart of the JAX engine's ``jax.jit(run).lower``: the op
+        and backend resolve as ``analyze_batch`` resolves them (the mesh
+        aside, as there), the stack's dtype is the one ingest would give
+        (64-bit integers narrowed, then the config's cast; float64 stays
+        float64, where the JAX package's argument is float32), and the
+        result's types, bytes and launches come from the shape alone. No
+        tensor of the stack's shape is made. Raises ``ValueError`` for an
+        op the backend does not serve, for the host backends ``serial``
+        and ``scalar``, for a shape that is not (B, H, W), and wherever
+        the route's kernels would refuse the shape.
+        """
+        run_op = op or self.op
+        opspec = engine_ops.get_op(run_op)
+        spec = self._resolve(run_op)
+        if spec.plan is None or opspec.layout is None:
+            raise ValueError(
+                f"backend {spec.name!r} (op {run_op!r}) runs on the host and "
+                f"cannot be lowered")
+        shape = tuple(int(d) for d in stack_shape)
+        if len(shape) != 3 or min(shape) < 0:
+            raise ValueError(f"lower expects a (B, H, W) stack shape, got "
+                             f"{tuple(stack_shape)}")
+        dtype = self._conform(torch.empty(0, dtype=_as_torch_dtype(dtype))
+                              ).dtype
+        out = {f: ShapeDtype(s, d)
+               for f, (s, d) in opspec.layout(*shape).items()}
+        return Lowered(op=run_op, backend=spec.name,
+                       in_info=ShapeDtype(shape, dtype),
+                       out_info=opspec.result_type(**out, batched=True),
+                       plan=spec.plan(shape, dtype, self.config),
+                       device=self.device)
+
+
+def _as_torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype, or a NumPy dtype (or its name) as torch names it."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return _numpy_dtype_to_torch(np.dtype(dtype).name)
 
 
 class YCHGEngine(Engine):

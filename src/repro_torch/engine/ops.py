@@ -11,7 +11,9 @@ device-resident pipelines:
   * ``reference``   — plain torch reference over a (B, H, W) stack; backends
                       must be bit-identical to it (tests enforce this);
   * ``chain_field`` — the result field fed to the next stage of a pipeline
-                      (None = terminal op: it cannot appear mid-chain).
+                      (None = terminal op: it cannot appear mid-chain);
+  * ``layout``      — (B, H, W) -> each field's (shape, dtype), reckoned
+                      from the shape alone (``Engine.lower`` reads it).
 
 Registered: ``ychg``, ``ccl`` and ``denoise``, the JAX package's three ops.
 """
@@ -122,6 +124,8 @@ class OpSpec:
     from_summary: Callable        # (summary, batched, event) -> result
     reference: Callable           # (B, H, W) stack -> summary (parity bar)
     chain_field: Optional[str] = None  # pipeline output field; None = terminal
+    # (b, h, w) -> {field: (shape, dtype)} in field order; None = unknown
+    layout: Optional[Callable] = None
 
 
 _OPS: Dict[str, OpSpec] = {}
@@ -175,6 +179,20 @@ def validate_pipeline(stages) -> Tuple[str, ...]:
     return stages
 
 
+# core.ychg.FIELD_LAYOUT's kinds as (shape, dtype) for B images W wide
+_YCHG_KINDS = {"int32 plane": (lambda b, w: (b, w), torch.int32),
+               "bool plane": (lambda b, w: (b, w), torch.bool),
+               "int32 total": (lambda b, w: (b,), torch.int32)}
+
+
+def _ychg_layout(b: int, h: int, w: int) -> Dict[str, Tuple[tuple, Any]]:
+    out = {}
+    for f, kind in _ychg.FIELD_LAYOUT.items():
+        shape, dtype = _YCHG_KINDS[kind]
+        out[f] = (shape(b, w), dtype)
+    return out
+
+
 def register_builtin_ops() -> None:
     """Register ``ychg``, ``ccl`` and ``denoise``; called by
     ``repro_torch.engine`` once the yCHG result type is importable
@@ -190,6 +208,7 @@ def register_builtin_ops() -> None:
         from_summary=_from_summary,
         reference=_ychg.analyze,
         chain_field=None,   # (B, W) outputs: not an image, cannot feed a stage
+        layout=_ychg_layout,
     ))
     register_op(OpSpec(
         name="ccl",
@@ -200,6 +219,8 @@ def register_builtin_ops() -> None:
             s.labels, s.n_components, batched=batched, event=event),
         reference=_ccl.labels,
         chain_field="labels",   # nonzero labels = foreground downstream
+        layout=lambda b, h, w: {"labels": ((b, h, w), torch.int32),
+                                "n_components": ((b,), torch.int32)},
     ))
     register_op(OpSpec(
         name="denoise",
@@ -210,4 +231,5 @@ def register_builtin_ops() -> None:
             s.image, batched=batched, event=event),
         reference=_denoise.denoise,
         chain_field="image",
+        layout=lambda b, h, w: {"image": ((b, h, w), torch.float32)},
     ))

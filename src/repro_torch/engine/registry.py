@@ -69,6 +69,11 @@ class BackendSpec:
     ``EngineConfig`` and returns the op's batched summary, bit-identical to
     the op's in-repo reference on the same stack (``core.ychg.analyze``
     for ``op="ychg"``; see ``repro_torch.engine.ops``).
+
+    ``plan(shape, dtype, config)`` reckons what ``run`` does on the card
+    for a (B, H, W) stack of that shape and dtype, from the shape alone
+    (a ``kernels.plan.Plan``); ``Engine.lower`` reads it. None for a
+    backend that runs on the host, which cannot be lowered.
     """
 
     name: str
@@ -81,6 +86,7 @@ class BackendSpec:
     priority: Mapping[str, int] = dataclasses.field(default_factory=dict)
     # operator this spec implements; the registry key is (op, name)
     op: str = "ychg"
+    plan: Optional[Callable] = None
 
     def priority_on(self, platform: str) -> int:
         return self.priority.get(platform, 0)

@@ -39,8 +39,10 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.core.ychg import foreground
+from repro_torch.core.ychg import foreground, foreground_passes
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as _plan
+from repro_torch.launch.roofline import ccl_work
 
 Tensor = torch.Tensor
 
@@ -182,6 +184,28 @@ def _canonicalize(lab: Tensor, fg: Tensor) -> CCLSummary:
     return CCLSummary(labels=canon.reshape(b, h, w), n_components=n)
 
 
+def canonicalize_plan(b: int, h: int, w: int) -> _plan.Plan:
+    """What :func:`_canonicalize` reads, writes and allocates for a (b, h,
+    w) stack, op by op in its order (bytes read and written an element);
+    the scans' own temporaries inside PyTorch's ``cumsum`` are not
+    reckoned."""
+    n, passes = b * h * w, _plan.passes
+    rank = (_plan.alloc("rank", 4 * n)
+            + _plan.Plan(op_bytes=8 * n, op_ops=n))   # cumsum into rank
+    clamp = _plan.Plan(op_bytes=8 * n, op_ops=n)      # clamp_ in place
+    n_components = (passes(b, [("rank[:, -1].clone()", 4, 4)], output=True)
+                    if h * w else _plan.alloc("zeros", 4 * b, output=True))
+    return (passes(n, [("where(fg, lab, 0)", 5, 4)])
+            + passes(h * w, [("arange", 0, 4)])
+            + passes(n, [("== pos", 8, 1), ("to int32", 1, 4)])
+            + rank
+            + passes(n, [("flat - 1", 4, 4)]) + clamp
+            + passes(n, [("long", 4, 8), ("gather", 12, 4),
+                         ("flat > 0", 4, 1)])
+            + passes(n, [("where(flat > 0, hop, 0)", 5, 4)], output=True)
+            + n_components)
+
+
 def labels(stack: Tensor) -> CCLSummary:
     """Reference: (B, H, W) stack of any dtype -> canonical CCL summary."""
     return _canonicalize(ccl_fixpoint_plain(stack), foreground(stack))
@@ -217,6 +241,24 @@ def check_shape(b: int, h: int, w: int) -> None:
     if h * w >= _INF:
         raise ValueError(f"an image of {h * w} pixels reaches the label "
                          f"sentinel {_INF}")
+
+
+def plan(b: int, h: int, w: int, dtype: torch.dtype) -> _plan.Plan:
+    """What :func:`labels_kernel` does on the card for a contiguous (b, h,
+    w) stack of ``dtype``, from the shape alone: ``launch`` (a foreground
+    pass for a dtype the kernel does not read, the raw labels, one counted
+    launch), the foreground of the stack, then :func:`canonicalize_plan`.
+    Raises where ``launch`` would."""
+    check_shape(b, h, w)
+    n, itemsize = b * h * w, dtype.itemsize
+    p = _plan.Plan(sources=("ccl",))
+    if dtype not in _KERNEL_DTYPES:
+        p += _plan.passes(n, foreground_passes(dtype))
+        itemsize = 1
+    return (p + _plan.alloc("raw fixpoint labels", 4 * n)
+            + _plan.launch("ccl", int(n > 0), ccl_work(n, itemsize))
+            + _plan.passes(n, foreground_passes(dtype))
+            + canonicalize_plan(b, h, w))
 
 
 def launch(stack: Tensor) -> Tensor:

@@ -39,8 +39,14 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.ychg import F32_EXPONENT_BITS, narrow_wide_ints
+from repro_torch.core.ychg import (
+    F32_EXPONENT_BITS,
+    narrow_wide_ints,
+    narrowed,
+)
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as _plan
+from repro_torch.launch.roofline import denoise_work
 
 Tensor = torch.Tensor
 
@@ -162,6 +168,16 @@ def to_float32(x: Tensor) -> Tensor:
     return narrow_wide_ints(x).to(torch.float32)
 
 
+def to_float32_passes(dtype: torch.dtype) -> tuple[tuple[str, int, int], ...]:
+    """The passes :func:`to_float32` runs on a tensor of ``dtype``, as
+    (what, bytes read a pixel, bytes written a pixel)."""
+    if dtype == torch.float32:
+        return ()
+    if narrowed(dtype) != dtype:
+        return (("low 32 bits", dtype.itemsize, 4), ("float32", 4, 4))
+    return (("float32", dtype.itemsize, 4),)
+
+
 def denoise_plain(stack: Tensor) -> Tensor:
     """Plain PyTorch version of the kernel: (B, H, W) any dtype -> float32."""
     x = to_float32(stack)
@@ -201,6 +217,22 @@ def check_shape(b: int, h: int, w: int) -> None:
                          f"{_MAX_GRID_YZ} a grid dimension")
     if w > _MAX_INT32 - STRIP_W:
         raise ValueError(f"width {w} exceeds the kernel's int32 columns")
+
+
+def plan(b: int, h: int, w: int, dtype: torch.dtype) -> _plan.Plan:
+    """What :func:`launch` does for a contiguous (b, h, w) stack of
+    ``dtype``, from the shape alone: a cast pass for a dtype the kernel
+    does not read, the float32 image, one counted launch. Raises where
+    ``launch`` would."""
+    check_shape(b, h, w)
+    n, itemsize = b * h * w, dtype.itemsize
+    p = _plan.Plan(sources=("denoise",), operation="float32")
+    if dtype not in _KERNEL_DTYPES:
+        p += _plan.passes(n, to_float32_passes(dtype), operation="float32")
+        itemsize = 4
+    return (p + _plan.alloc("image", 4 * n, output=True, operation="float32")
+            + _plan.launch("denoise", int(n > 0), denoise_work(n, itemsize),
+                           "float32"))
 
 
 def launch(stack: Tensor) -> Tensor:

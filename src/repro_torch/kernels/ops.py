@@ -14,16 +14,20 @@ The routing rule is the JAX package's (``repro/kernels/ops.py``): the
 split-H kernel runs when ``H * block_w`` exceeds ``vmem_budget``, so the
 port routes every mask exactly as the reference does. That budget is a
 TPU VMEM size and means nothing on Hopper, where the choice is one of
-occupancy; retuning the rule is queued in ``ROADMAP.md``.
+occupancy; retuning the rule is queued in ``ROADMAP.md``. The rule is one
+function, :func:`use_splith`, which the wrappers and the plans
+(``plan_fused``, ``plan_cuda``: what each route does for a stack, from its
+shape alone; ``kernels.plan``) both call.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.ychg import YCHGSummary
+from repro_torch.kernels import plan as _plan
 from repro_torch.kernels import ychg_colscan as _c
 from repro_torch.kernels import ychg_fused as _f
 
@@ -31,6 +35,15 @@ Tensor = torch.Tensor
 
 # raw int8 tile budget (bytes) past which the reference streams over H
 _FULL_COLUMN_VMEM_BUDGET = 4 * 1024 * 1024
+
+
+def use_splith(h: int, block_w: int = 128,
+               vmem_budget: Optional[int] = None) -> bool:
+    """The routing rule: masks H rows tall take the split-H kernels when
+    ``h * block_w`` exceeds ``vmem_budget`` (None: the reference's 4 MiB)."""
+    if vmem_budget is None:
+        vmem_budget = _FULL_COLUMN_VMEM_BUDGET
+    return h * block_w > vmem_budget
 
 
 def colscan_runs(
@@ -45,13 +58,11 @@ def colscan_runs(
     ``block_w`` enters only the routing rule; ``block_h`` is the split-H
     kernel's segment height. A non-contiguous input is copied first.
     """
-    if vmem_budget is None:
-        vmem_budget = _FULL_COLUMN_VMEM_BUDGET
     if img.ndim != 2:
         raise ValueError(f"expected an (H, W) mask, got {tuple(img.shape)}")
     h, _ = img.shape
     img = img.contiguous()
-    if h * block_w > vmem_budget:
+    if use_splith(h, block_w, vmem_budget):
         return _c.ychg_colscan_splith(img, block_h=block_h)
     return _c.ychg_colscan_full(img)
 
@@ -77,12 +88,10 @@ def analyze_batch(
     Step 1 takes the route ``colscan_runs`` takes for one mask of the
     stack. A non-contiguous input is copied first.
     """
-    if vmem_budget is None:
-        vmem_budget = _FULL_COLUMN_VMEM_BUDGET
     if imgs.ndim != 3:
         raise ValueError(f"expected a (B, H, W) stack, got "
                          f"{tuple(imgs.shape)}")
-    split = imgs.shape[1] * block_w > vmem_budget
+    split = use_splith(imgs.shape[1], block_w, vmem_budget)
     return _c.ychg_colscan_analyze(imgs.contiguous(),
                                    block_h=block_h if split else None)
 
@@ -126,8 +135,6 @@ def analyze_fused(
     ``block_w`` enters only the routing rule; ``block_h`` is the split-H
     kernel's segment height. A non-contiguous input is copied first.
     """
-    if vmem_budget is None:
-        vmem_budget = _FULL_COLUMN_VMEM_BUDGET
     squeeze = img.ndim == 2
     imgs = img[None] if squeeze else img
     if imgs.ndim != 3:
@@ -137,7 +144,7 @@ def analyze_fused(
     if b == 0:  # nothing to launch
         return _empty_summary(w, imgs.device)
     imgs = imgs.contiguous()
-    if h * block_w > vmem_budget:
+    if use_splith(h, block_w, vmem_budget):
         out = _f.ychg_fused_splith(imgs, block_h=block_h)
     else:
         out = _f.ychg_fused_full(imgs)
@@ -152,3 +159,31 @@ def analyze_fused(
         n_hyperedges=out["n_hyperedges"],
         n_transitions=out["n_transitions"],
     )
+
+
+def plan_fused(b: int, h: int, w: int, dtype: torch.dtype, *,
+               block_w: int = 128, block_h: int = 2048,
+               vmem_budget: Optional[int] = None) -> _plan.Plan:
+    """What :func:`analyze_fused` does on the card for a (b, h, w) stack of
+    ``dtype``: route ``full`` or ``splith`` by :func:`use_splith`, the
+    kernel wrapper's plan, and the cut vertices (``2 * runs``, a PyTorch
+    op). A stack of no images launches nothing."""
+    split = use_splith(h, block_w, vmem_budget)
+    route = _plan.Plan(route="splith" if split else "full",
+                       sources=("ychg_fused",))
+    if b == 0:
+        return route
+    return (route + _f.plan(b, h, w, dtype, block_h if split else None)
+            + _plan.passes(b * w, [("cut_vertices = 2 * runs", 4, 4)],
+                           output=True))
+
+
+def plan_cuda(b: int, h: int, w: int, dtype: torch.dtype, *,
+              block_w: int = 128, block_h: int = 2048,
+              vmem_budget: Optional[int] = None) -> _plan.Plan:
+    """What :func:`analyze_batch` does on the card for a (b, h, w) stack of
+    ``dtype``: route ``full`` or ``splith`` by :func:`use_splith`, then the
+    batch entry's plan (``ychg_colscan.plan_analyze``)."""
+    split = use_splith(h, block_w, vmem_budget)
+    return (_plan.Plan(route="splith" if split else "full")
+            + _c.plan_analyze(b, h, w, dtype, block_h if split else None))

@@ -30,7 +30,8 @@ and float32 masks in place (float32 by its exponent bits, as
 one ``foreground`` pass on the device.
 
 ``LAUNCHES`` counts kernel launches per kernel, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``plan_analyze`` reckons what the
+batch entry does for a stack from its shape alone (``kernels.plan``).
 """
 
 from __future__ import annotations
@@ -43,10 +44,14 @@ import torch
 from repro_torch.core.ychg import (
     column_runs,
     foreground,
+    foreground_passes,
     hyperedge_transitions,
+    zeroed_nbytes,
     zeroed_outputs,
 )
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as _plan
+from repro_torch.launch.roofline import colscan_work, finish_work
 
 Tensor = torch.Tensor
 
@@ -316,3 +321,28 @@ def launch_analyze(imgs: Tensor, *, block_h: Optional[int] = None
         LAUNCHES["ychg_colscan_splith"] += b
     LAUNCHES["ychg_diff"] += b
     return out
+
+
+def plan_analyze(b: int, h: int, w: int, dtype: torch.dtype,
+                 block_h: Optional[int] = None) -> _plan.Plan:
+    """What ``launch_analyze`` does for a contiguous (b, h, w) stack of
+    ``dtype``, from the shape alone: one foreground pass for a dtype the
+    step-1 kernels do not read, one zeroed buffer for the seven fields, and
+    a step-1 and a ``ychg_diff`` launch a mask (no step-1 launch split-H
+    when h is 0). Raises where it would."""
+    _check_block_h(block_h)
+    if block_h is not None:
+        _check_segments(h, block_h)
+    itemsize = dtype.itemsize
+    p = _plan.Plan(sources=("ychg_colscan",))
+    if dtype not in _KERNEL_DTYPES:
+        p += _plan.passes(b * h * w, foreground_passes(dtype))
+        itemsize = 1
+    p += _plan.alloc("zeroed outputs", zeroed_nbytes(ANALYZE_FIELDS, b, w),
+                     output=True)
+    if b == 0 or w == 0:
+        return p
+    step1 = "ychg_colscan_full" if block_h is None else "ychg_colscan_splith"
+    p += _plan.launch(step1, b if block_h is None or h > 0 else 0,
+                      colscan_work(h, w, itemsize))
+    return p + _plan.launch("ychg_diff", b, finish_work(w))

@@ -25,18 +25,26 @@ version. The kernels read uint8, bool, int32 and float32 masks in place
 ``foreground`` pass on the device.
 
 ``LAUNCHES`` counts kernel launches per wrapper, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. ``plan`` reckons what either wrapper
+does for a stack from its shape alone (``kernels.plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core.ychg import foreground, zeroed_outputs
+from repro_torch.core.ychg import (
+    foreground,
+    foreground_passes,
+    zeroed_nbytes,
+    zeroed_outputs,
+)
 from repro_torch.kernels import _build
+from repro_torch.kernels import plan as _plan
+from repro_torch.launch.roofline import fused_work
 
 Tensor = torch.Tensor
 
@@ -168,12 +176,45 @@ def _raise_on(err: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def check_grid(b: int, h: int, block_h: Optional[int] = None) -> None:
+    """Raises for a (b, h, ...) stack the kernels' grid cannot hold: images
+    along y (at most 65535) and, split-H, ``block_h``-row ranges along z."""
+    if block_h is None:
+        if b > _MAX_GRID_YZ:
+            raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a "
+                             f"launch")
+        return
+    if block_h < 1:
+        raise ValueError(f"block_h must be >= 1, got {block_h}")
+    if b > _MAX_GRID_YZ or -(-h // block_h) > _MAX_GRID_YZ:
+        raise ValueError(f"(batch {b}, {-(-h // block_h)} H segments) "
+                         f"exceeds {_MAX_GRID_YZ} a grid dimension")
+
+
+def plan(b: int, h: int, w: int, dtype: torch.dtype,
+         block_h: Optional[int] = None) -> _plan.Plan:
+    """What ``launch_full`` (``block_h`` None) or ``launch_splith`` does for
+    a contiguous (b, h, w) stack of ``dtype``, from the shape alone: one
+    foreground pass for a dtype the kernels do not read, one zeroed buffer
+    for the six fields, and one counted launch. Raises where they would."""
+    check_grid(b, h, block_h)
+    itemsize = dtype.itemsize
+    p = _plan.Plan(sources=("ychg_fused",))
+    if dtype not in _KERNEL_DTYPES:
+        p += _plan.passes(b * h * w, foreground_passes(dtype))
+        itemsize = 1
+    p += _plan.alloc("zeroed outputs", zeroed_nbytes(_FIELDS, b, w),
+                     output=True)
+    kernel = "ychg_fused_full" if block_h is None else "ychg_fused_splith"
+    return p + _plan.launch(kernel, int(b > 0 and w > 0),
+                            fused_work(b, h, w, itemsize))
+
+
 def launch_full(imgs: Tensor) -> Dict[str, Tensor]:
     """The ``ychg_fused_full`` CUDA kernel on a CUDA (B, H, W) stack."""
     x, code = _kernel_input(imgs)
     b, h, w = x.shape
-    if b > _MAX_GRID_YZ:
-        raise ValueError(f"batch {b} exceeds {_MAX_GRID_YZ} images a launch")
+    check_grid(b, h)
     out = zeroed_outputs(_FIELDS, b, w, x.device)
     if b == 0 or w == 0:  # nothing to launch; a 0 grid is invalid
         return out
@@ -189,13 +230,9 @@ def launch_full(imgs: Tensor) -> Dict[str, Tensor]:
 
 def launch_splith(imgs: Tensor, *, block_h: int = 2048) -> Dict[str, Tensor]:
     """The ``ychg_fused_splith`` CUDA kernels on a CUDA (B, H, W) stack."""
-    if block_h < 1:
-        raise ValueError(f"block_h must be >= 1, got {block_h}")
     x, code = _kernel_input(imgs)
     b, h, w = x.shape
-    if b > _MAX_GRID_YZ or -(-h // block_h) > _MAX_GRID_YZ:
-        raise ValueError(f"(batch {b}, {-(-h // block_h)} H segments) "
-                         f"exceeds {_MAX_GRID_YZ} a grid dimension")
+    check_grid(b, h, block_h)
     out = zeroed_outputs(_FIELDS, b, w, x.device)
     if b == 0 or w == 0:
         return out

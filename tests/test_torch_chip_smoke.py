@@ -10,6 +10,10 @@ and that the main path reaches all nine kernels; it says nothing about the
 kernels themselves, which only a run on the card can check. Phase 5's
 meshes list the CPU, and its fleet workers are real worker processes run
 with ``--device cpu`` (so their ops resolve to the ``torch`` backends).
+Phase 7 lowers and runs its cells on the CPU (the memory probes answer 0,
+and the peak is not measured there), dry-runs the workload with the
+``torch`` backend, and runs the five examples as processes with
+``--device cpu``.
 """
 
 import json
@@ -36,6 +40,10 @@ REHEARSAL = textwrap.dedent("""
     torch.cuda.synchronize = lambda *a, **k: None
     torch.cuda.empty_cache = lambda: None
     torch.cuda.current_stream = lambda *a: type("S", (), {"cuda_stream": 0})
+    torch.cuda.memory_allocated = lambda *a: 0
+    torch.cuda.max_memory_allocated = lambda *a: 0
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
+    torch.cuda.memory_stats = lambda *a: {}
 
     class Event:
         def __init__(self, enable_timing=False):
@@ -72,6 +80,8 @@ REHEARSAL = textwrap.dedent("""
     cs.PACKED_MAX_SEGMENTS, cs.PACKED_LONG_SEGMENTS = 4, (3, 5)
     cs.FLEET_BACKENDS = {"ychg": "torch", "ccl": "torch", "denoise": "torch"}
     cs.SLO_RES, cs.SLO_BATCH = 32, 2
+    cs.PIPELINE_TILE, cs.ANYRES_TILE = 16, 32
+    cs.STREAM_VMEM_BUDGET = 16384   # the 320-row tall strip takes split-H
     import repro_torch.sharding as shard
     every_device = shard.make_batch_mesh
     shard.make_batch_mesh = lambda axis_name="data", devices=None: (
@@ -248,6 +258,23 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         want = k["name"] in ("ychg_fused_full", "ychg_fused_splith", "ccl",
                              "denoise")
         assert (k["mesh_launches"] > 0) == want, k["name"]
+    for name in ("ychg_fused_full", "ychg_fused_splith", "ychg_colscan_full",
+                 "ychg_colscan_splith", "ychg_diff", "ccl", "denoise"):
+        k = next(k for k in kernels if k["name"] == name)
+        assert k["lower_phase_launches"] > 0, name
+    assert out.stdout.count("memory_allocated +0") == 22
+    assert out.stdout.count(" as lowered, fields as out_info") == 11
+    assert ("lower: ychg [fused] tall strip [1, 320, 64] uint8 (cold): "
+            in out.stdout)
+    assert "route splith, launches {\"ychg_fused_splith\": 1}" in (
+        out.stdout)
+    assert out.stdout.count("dryrun: b8 ") == 8
+    assert "dryrun: 8 cells ok" in out.stdout
+    assert "pipeline: 64^2 snowfield in 16^2 tiles, 2 batches" in out.stdout
+    for name in ("quickstart", "satellite_roi", "roi_pipeline",
+                 "roi_service_http", "roi_scene_bulk"):
+        assert f"example: {name} exit 0" in out.stdout, name
+    assert "phase 7 (lower, dry run, pipeline, examples): " in out.stdout
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]

@@ -1,7 +1,8 @@
-"""The port stands alone: no module of ``repro_torch``, not
-``chip_smoke.py``, and not a fleet worker run as ``python -m
-repro_torch.fleet.worker``, imports JAX or anything of the JAX package
-``repro``."""
+"""The port stands alone: no module of ``repro_torch`` (the examples
+included), not ``chip_smoke.py``, and not a fleet worker run as ``python
+-m repro_torch.fleet.worker``, imports JAX or anything of the JAX package
+``repro``; importing a module runs nothing and leaves the environment as
+it was."""
 
 import os
 import subprocess
@@ -38,7 +39,16 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.sharding.ychg", "repro_torch.fleet.hashring",
                 "repro_torch.fleet.peering", "repro_torch.fleet.router",
                 "repro_torch.fleet.worker",
-                "repro_torch.launch.compilecache"} <= set(names), names
+                "repro_torch.launch.compilecache",
+                "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.data.pipeline", "repro_torch.core.regions",
+                "repro_torch.core.api", "repro_torch.engine.lowering",
+                "repro_torch.kernels.plan",
+                "repro_torch.examples.quickstart",
+                "repro_torch.examples.satellite_roi",
+                "repro_torch.examples.roi_pipeline",
+                "repro_torch.examples.roi_service_http",
+                "repro_torch.examples.roi_scene_bulk"} <= set(names), names
         sys.path.insert(0, sys.argv[1])
         import chip_smoke  # its main() runs only as a script
 
@@ -52,7 +62,24 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", script, str(ROOT)], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 54  # every module was imported
+    assert int(out.stdout.strip()) >= 66  # every module was imported
+
+
+def test_importing_dryrun_leaves_the_environment_alone():
+    """The JAX package's dry run sets ``XLA_FLAGS`` when imported; the
+    port's sets nothing."""
+    script = textwrap.dedent("""
+        import os
+        before = dict(os.environ)
+        import repro_torch.launch.dryrun
+        assert dict(os.environ) == before
+        print("clean")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
 
 
 def test_fleet_worker_run_as_a_module_imports_no_jax():
