@@ -99,7 +99,11 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      ``/v1/ccl``, ``/v1/denoise`` and ``/v1/pipeline`` at 2048^2 (the
      largest masks its 64 MiB body limit carries), every response equal
      to the plain reference, ``/metrics`` parsed, and a 429 with
-     Retry-After at a full queue. Every kernel must have launched in this
+     Retry-After at a full queue; last ``launch.serve --op-smoke`` at
+     2048^2 on the card (every op over ``/v1/{op}`` bit-identical to its
+     reference, ``/v1/pipeline`` denoise -> ychg equal to its stages sent
+     apart, an unknown op answered 404 naming the registry, one dispatch
+     series an op on ``/metrics``). Every kernel must have launched in this
      phase;
   5. the engine's batch mesh and the worker fleet, every launch counter
      set to 0 just before it: the serving batch through
@@ -146,10 +150,31 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      ``filter_empty_tiles``, one ``ychg_fused_full`` launch a batch and
      the stats equal to the ``torch`` engine's, and ``anyres_select``
      equal too; the five examples (``python -m
-     repro_torch.examples.<name>``) run together, each exiting 0.
+     repro_torch.examples.<name>``) run together, each exiting 0;
+  8. LM serving, every launch counter set to 0 just before (the LM path
+     launches none of the nine kernels, and the phase fails if it does),
+     TF32 off: qwen2-0.5b at full width and minicpm3-4b (MLA) at full width
+     and two layers, both in float32 with weights from a seeded generator on
+     the card and the same tensors copied to the CPU: ``forward`` on a
+     seeded 2 x 64 prompt on the card against the CPU, ``decode_step`` over
+     the 64 positions on the card against ``forward``, and the greedy
+     tokens of ``ServeEngine.generate`` for 16 steps on the card against
+     the CPU (a step may differ only where the CPU's top-2 logit gap is
+     under the bound, printed), all within 1e-3 of max|logit|; then
+     qwen2-0.5b at its own dtypes (bfloat16): ``ServeEngine.generate``,
+     batch 8, prompt 128, 64 new tokens, greedy, after a warm-up run twice
+     to equal tokens, with prefill ms (CUDA events, median of 5) and
+     decode ms a step (CUDA events, median of the 64 steps), tokens/s and
+     ``max_memory_allocated`` beside the decode step's bound (parameter
+     bytes plus the KV cache bytes a step reads, over 3.35 TB/s) and the
+     prefill's (two operations a parameter a token over the bfloat16
+     peak); last ``python -m repro_torch.launch.serve
+     --workload lm --arch qwen2-0.5b --batch 4 --prompt 32 --max-new 32``
+     (the full config) and the ``serve_lm`` example, run together, each
+     exiting 0.
 
-It prints the kernels' JSON line, the card line, and last
-``{"ok": true, "device": {...}}``.
+It prints phase 8's numbers as one ``lm:`` JSON line, the kernels' JSON
+line, the card line, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -829,6 +854,263 @@ EXAMPLES = ("quickstart", "satellite_roi", "roi_pipeline",
 EXAMPLE_TIMEOUT_S = 300
 
 
+# phase 8: LM serving. The float32 checks (card against CPU) run qwen2-0.5b
+# at full width and minicpm3-4b (MLA) at full width and two layers; the
+# bfloat16 serving shape is qwen2-0.5b at its own dtypes; the CLI serves the
+# full config. The rehearsal sets LM_SMOKE to run the reduced configs.
+LM_ARCH, LM_MLA_ARCH, LM_MLA_LAYERS = "qwen2-0.5b", "minicpm3-4b", 2
+LM_SMOKE = False
+LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_NEW = 2, 64, 16
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 64
+LM_PREFILL_SAMPLES = 5
+# the float32 bound, a share of max|logit| on the CPU: card against CPU,
+# decode against forward, and the top-2 gap under which a greedy token may
+# differ; stated before the first run on the card
+LM_REL_BOUND = 1e-3
+LM_CLI = ("--workload", "lm", "--arch", LM_ARCH, "--batch", "4", "--prompt",
+          "32", "--max-new", "32")
+LM_PROCESS_TIMEOUT_S = 300
+
+
+def lm_config(name: str, **overrides):
+    from repro_torch.configs import get_config
+    from repro_torch.configs.archs import smoke_config
+
+    cfg = smoke_config(name) if LM_SMOKE else get_config(name)
+    return cfg.scaled(**overrides)
+
+
+def lm_float32_check(np, torch, label: str, cfg, card: str) -> dict:
+    """One model in float32 on the card against the same weights on the
+    CPU: ``forward``, ``decode_step`` over the prompt against ``forward``,
+    and ``ServeEngine.generate``'s greedy tokens."""
+    from repro_torch.models import (
+        count_params,
+        decode_step,
+        forward,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    host = tree_map(lambda t: t.cpu(), params)
+    b, p, new = LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_NEW
+    prompt = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)
+    tokens = torch.from_numpy(prompt)
+    with torch.inference_mode():
+        on_card = forward(params, cfg, tokens.to(DEV))[0]
+        on_cpu = forward(host, cfg, tokens)[0]
+        scale = float(on_cpu.abs().max())
+        bound = LM_REL_BOUND * scale
+        err = float((on_card.cpu() - on_cpu).abs().max())
+        check(err <= bound, f"{label}: forward on the card differs from the "
+                            f"CPU by {err} > {bound}")
+        cache = init_cache(cfg, b, p, DEV)
+        steps = []
+        for i in range(p):
+            logits, cache = decode_step(params, cfg, cache,
+                                        tokens[:, i:i + 1].to(DEV), i)
+            steps.append(logits)
+        dec_err = float((torch.stack(steps, 1) - on_card).abs().max())
+        check(dec_err <= bound, f"{label}: decode_step on the card differs "
+                                f"from forward by {dec_err} > {bound}")
+        del on_card, on_cpu, cache, steps
+        got = ServeEngine(cfg, params, p + new, device=DEV).generate(
+            prompt, new).tokens
+        want = ServeEngine(cfg, host, p + new, device="cpu").generate(
+            prompt, new).tokens
+        ties = []
+        for row in range(b):
+            differ = np.nonzero(got[row] != want[row])[0]
+            if not differ.size:
+                continue
+            k = int(differ[0])
+            seq = np.concatenate([prompt[row], want[row, :k]])[None]
+            last = forward(host, cfg, torch.from_numpy(seq))[0][0, -1]
+            top = torch.topk(last.float(), 2).values
+            gap = float(top[0] - top[1])
+            check(gap < bound, f"{label}: greedy token {k} of row {row} "
+                               f"differs on the card with a top-2 gap "
+                               f"{gap} >= {bound}")
+            ties.append({"row": row, "step": k, "gap": gap})
+            print(f"lm [{label}]: greedy row {row} parts at step {k}, a "
+                  f"top-2 gap of {gap:.3e} under the bound", flush=True)
+    print(f"lm [{label}]: {count_params(cfg):,} params float32, prompt "
+          f"{b} x {p}: forward on the card against the CPU max abs "
+          f"{err:.3e} (relative to max|logit| {scale:.4f}: "
+          f"{err / scale:.3e}); decode_step over {p} positions against "
+          f"forward max abs {dec_err:.3e}; bound {bound:.3e} "
+          f"({LM_REL_BOUND:g} of max|logit|); greedy tokens of "
+          f"ServeEngine.generate equal for {new} steps "
+          f"{'except at ' + json.dumps(ties) if ties else 'in every row'}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return {"forward_max_abs": err, "decode_max_abs": dec_err,
+            "max_logit": scale, "bound": bound, "greedy_ties": ties}
+
+
+def lm_phase(np, torch, card: str) -> dict:
+    """Phase 8: LM serving on the card, every kernel launch counter set to
+    0 just before (the LM path launches none of the nine kernels)."""
+    from repro_torch.kernels import ccl as kccl
+    from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import ychg_colscan as kc
+    from repro_torch.kernels import ychg_fused as kf
+    from repro_torch.kernels import ychg_packed as kp
+    from repro_torch.launch.roofline import PEAK_BYTES_PER_S
+    from repro_torch.launch.serve import export_pythonpath
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.layers import tree_leaves_with_path
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    modules = (kf, kc, kdn, kccl, kp)
+    for module in modules:
+        module.reset_launch_counts()
+    # float32 is float32 on the card only with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    for label, cfg in [
+            (LM_ARCH, lm_config(LM_ARCH, param_dtype="float32",
+                                activation_dtype="float32")),
+            (f"{LM_MLA_ARCH} x{LM_MLA_LAYERS}",
+             lm_config(LM_MLA_ARCH, num_layers=LM_MLA_LAYERS,
+                       param_dtype="float32", activation_dtype="float32"))]:
+        report[label] = lm_float32_check(np, torch, label, cfg, card)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    # the serving shape at the model's own dtypes
+    cfg = lm_config(LM_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    prompts = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    eng = ServeEngine(cfg, params, LM_PROMPT + LM_NEW, device=DEV)
+    eng.generate(prompts, LM_NEW)       # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, seconds = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        runs.append(eng.generate(prompts, LM_NEW).tokens)
+        seconds.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(np.array_equal(runs[0], runs[1]),
+          f"{LM_ARCH} bfloat16: two greedy runs gave different tokens")
+    check(runs[0].shape == (LM_BATCH, LM_NEW),
+          f"{LM_ARCH} bfloat16: tokens of shape {runs[0].shape}")
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    with torch.inference_mode():
+        tokens = torch.from_numpy(prompts).to(DEV)
+        prefill = []
+        for _ in range(LM_PREFILL_SAMPLES):
+            start, end = event(), event()
+            start.record()
+            logits, cache = eng._prefill(params, tokens)
+            end.record()
+            end.synchronize()
+            prefill.append(start.elapsed_time(end))
+        prefill_ms = statistics.median(prefill)
+        cache = eng._pad_cache(cache)
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in tree_leaves_with_path(cache))
+        tok = eng._sample(logits, 0.0, None)
+        marks = [event() for _ in range(LM_NEW + 1)]
+        marks[0].record()
+        for i in range(LM_NEW):
+            logits, cache = eng._serve(params, cache, tok, LM_PROMPT + i)
+            tok = eng._sample(logits, 0.0, None)
+            marks[i + 1].record()
+        marks[-1].synchronize()
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    decode_ms = statistics.median(step_ms)
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_leaves_with_path(params))
+    bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3
+    n_params = count_params(cfg)
+    # prefill: two operations a parameter a token (the tied head reads the
+    # embedding once more as the output projection), bf16 tensor-core peak
+    prefill_bound_ms = max(
+        2 * n_params * LM_BATCH * LM_PROMPT / 989e12,
+        (param_bytes + cache_bytes * LM_PROMPT / (LM_PROMPT + LM_NEW))
+        / PEAK_BYTES_PER_S) * 1e3
+    tok_s = [LM_BATCH * LM_NEW / t for t in seconds]
+    del params, eng, cache, logits, tokens
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"lm [{LM_ARCH} bfloat16]: ServeEngine.generate batch {LM_BATCH}, "
+          f"prompt {LM_PROMPT}, {LM_NEW} new tokens, greedy, two runs equal; "
+          f"generate {json.dumps([round(t, 4) for t in seconds])} s "
+          f"({json.dumps([round(t, 1) for t in tok_s])} tokens/s); prefill "
+          f"{prefill_ms:.3f} ms (median of {LM_PREFILL_SAMPLES}, CUDA "
+          f"events; min {min(prefill):.3f}, max {max(prefill):.3f}; bound "
+          f"{prefill_bound_ms:.3f} ms); decode "
+          f"{decode_ms:.3f} ms a step (median of {LM_NEW}, CUDA events; "
+          f"min {min(step_ms):.3f}, max {max(step_ms):.3f}) against a bound "
+          f"of {bound_ms:.3f} ms ({param_bytes:,} parameter bytes + "
+          f"{cache_bytes:,} KV cache bytes a step over "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s): {bound_ms / decode_ms:.1%} "
+          f"of the bound; max_memory_allocated {peak:,} B; {card}",
+          flush=True)
+    report[f"{LM_ARCH} bfloat16"] = {
+        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+        "generate_s": seconds, "tokens_per_s": tok_s,
+        "prefill_ms": prefill_ms, "prefill_samples_ms": prefill,
+        "prefill_bound_ms": prefill_bound_ms,
+        "decode_ms": decode_ms, "decode_step_ms": step_ms,
+        "decode_bound_ms": bound_ms, "param_bytes": param_bytes,
+        "cache_bytes": cache_bytes, "max_memory_allocated": peak}
+
+    # the CLI at the full config and the serve_lm example, as a user runs
+    # them, together
+    export_pythonpath()
+    flag = ["--device", "cpu"] if DEV == "cpu" else []
+    commands = {
+        "serve --workload lm": [sys.executable, "-m",
+                                "repro_torch.launch.serve", *LM_CLI, *flag,
+                                *(["--smoke"] if LM_SMOKE else [])],
+        "examples.serve_lm": [sys.executable, "-m",
+                              "repro_torch.examples.serve_lm", *flag]}
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+             for name, cmd in commands.items()}
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=LM_PROCESS_TIMEOUT_S)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for name, proc in procs.items():
+        out, err = outs.get(name, ("", ""))
+        check(proc.returncode == 0,
+              f"{name} exited {proc.returncode}: {err[-2000:]}")
+        print(f"lm: {name} exit 0; output: "
+              f"{' | '.join(out.strip().splitlines())}", flush=True)
+    print(f"lm: the CLI and the example exited 0 in "
+          f"{time.perf_counter() - t0:.1f} s (run together)", flush=True)
+
+    launches = {}
+    for module in modules:
+        launches.update(module.LAUNCHES)
+    check(not any(launches.values()),
+          f"the LM path launched a yCHG kernel: {launches}")
+    print(f"phase 8 (LM serving): {time.perf_counter() - t_phase:.1f} s; "
+          f"the LM path launched none of the nine kernels "
+          f"{json.dumps(launches)}", flush=True)
+    return report
+
+
 def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
     """Phase 7: ``Engine.lower`` and compile on the card, allocating
     nothing; each cell run once against its plan (launches, output types,
@@ -1128,6 +1410,7 @@ def main() -> int:
         check_metrics_page,
         derived_masks,
         export_pythonpath,
+        op_smoke,
         overload_over_wire,
         overload_pass,
         pipeline_pass,
@@ -2032,6 +2315,18 @@ def main() -> int:
           f"Retry-After {retry:.3f} s; on {card}", flush=True)
     free()
 
+    # launch.serve --op-smoke on the card: every op over /v1/{op} equal to
+    # its reference, /v1/pipeline equal to its stages, the 404 and /metrics
+    t0 = time.perf_counter()
+    try:
+        op_smoke(argparse.Namespace(res=FRONTEND_RES, batch=SERVE_BATCH,
+                                    device=None))
+    except SystemExit as exc:
+        raise SmokeFailure(f"launch.serve --op-smoke: {exc}") from None
+    print(f"op smoke: launch.serve --op-smoke at {FRONTEND_RES}^2 passed "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    free()
+
     launches = {**kf.LAUNCHES, **kc.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES,
                 **kp.LAUNCHES}
     for name in KERNELS:
@@ -2352,6 +2647,10 @@ def main() -> int:
     slice_launches = lowering_phase(np, torch, card, serve_masks, scene)
     free()
 
+    # 8. LM serving
+    lm = lm_phase(np, torch, card)
+    free()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = timings[name][0]
@@ -2379,6 +2678,7 @@ def main() -> int:
         })
         if name == "ychg_diff":
             kernels[-1]["batch_entry"] = batch_entry
+    print("lm: " + json.dumps(lm), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

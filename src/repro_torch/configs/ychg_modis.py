@@ -69,6 +69,15 @@ class YCHGWorkloadConfig:
     engine: EngineSection = EngineSection()
     backends: Tuple[str, ...] = ("scalar", "serial", "torch", "cuda", "fused")
 
+    # legacy flat tile knobs, kept as views of the engine section
+    @property
+    def block_w(self) -> int:
+        return self.engine.block_w
+
+    @property
+    def block_h(self) -> int:
+        return self.engine.block_h
+
 
 def config() -> YCHGWorkloadConfig:
     return YCHGWorkloadConfig()

@@ -1,6 +1,7 @@
-"""Twins of the JAX package's yCHG examples, each run as
-``python -m repro_torch.examples.<name> [--device cpu]`` (the card unless
-``--device cpu``). Importing one runs nothing."""
+"""Twins of the JAX package's examples (the five yCHG ones and
+``serve_lm``), each run as ``python -m repro_torch.examples.<name>
+[--device cpu]`` (the card unless ``--device cpu``). Importing one runs
+nothing."""
 
 import argparse
 

@@ -1,8 +1,12 @@
-"""The port's serve command: ``--workload ychg`` runs the paper's
-image-analysis service on the card, in-process or over the network front
-end.
+"""The port's serve command: ``--workload ychg`` (the default) runs the
+paper's image-analysis service on the card, in-process or over the network
+front end; ``--workload lm`` serves batched requests through an LM.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+      --arch qwen2-0.5b                       # full width, on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm \\
+      --arch qwen2-0.5b --smoke --device cpu  # the reduced config
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 8192 --batch 8                    # on the CUDA device
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
@@ -16,6 +20,8 @@ Usage:
       --connect http://127.0.0.1:8788         # drive a running server
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --frontend-smoke --device cpu   # end-to-end assert
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
+      --res 64 --batch 4 --op-smoke --device cpu         # multi-op assert
   # granule-scale bulk analysis (repro_torch.scene):
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg scene \\
       --granules 4 --scene-height 4096 --scene-width 2048 \\
@@ -30,14 +36,16 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --workload ychg \\
       --res 64 --batch 4 --slo-smoke --device cpu        # traffic classes assert
 
-The counterpart of ``repro.launch.serve``'s in-process ``ychg`` pass
-(``serve_ychg``), with its ``--op`` and ``--overload`` legs, of its
-``--listen``, ``--connect`` and ``--frontend-smoke`` network modes, of its
-``--fleet``, ``--fleet-smoke`` and ``--slo-smoke`` modes, and of its
-``scene`` subcommand and ``--scene-smoke``; :func:`pipeline_pass` serves
-masks through an op chain. Every mode runs the engine on the card unless
-``--device cpu`` is given; fleet workers get the same ``--device``. The LM
-modes have no counterpart.
+The counterpart of ``repro.launch.serve``: its LM mode (``serve_lm``, with
+``--arch``, ``--smoke``, ``--prompt``, ``--max-new`` and ``--batch``), its
+in-process ``ychg`` pass (``serve_ychg``) with its ``--op`` and
+``--overload`` legs, its ``--listen``, ``--connect``, ``--frontend-smoke``
+and ``--op-smoke`` network modes, its ``--fleet``, ``--fleet-smoke`` and
+``--slo-smoke`` modes, and its ``scene`` subcommand and ``--scene-smoke``;
+:func:`pipeline_pass` serves masks through an op chain. Every mode runs on
+the card unless ``--device cpu`` is given; fleet workers get the same
+``--device``. The reference's default workload is ``lm``; the port's stays
+``ychg``, so a bare command runs the paper's workload as it always has.
 """
 
 from __future__ import annotations
@@ -217,6 +225,36 @@ def overload_pass(engine, burst: Sequence[np.ndarray], *, max_batch: int,
 # one human-readable number per op for the per-tile report
 _OP_STAT_NAME = {"ychg": "hyperedges", "ccl": "components",
                  "denoise": "mean"}
+
+
+def serve_lm(args) -> None:
+    """Serve ``--batch`` random prompts of ``--prompt`` tokens through
+    ``ServeEngine`` on ``--arch`` (``--smoke``: its reduced config), with
+    ``--max-new`` sampled tokens each; the weights are drawn from a seeded
+    generator on the engine's device."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.layers import resolve_device
+    from repro_torch.serve import ServeEngine
+
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device = resolve_device(args.device)
+    print(f"{cfg.name}: {count_params(cfg) / 1e6:.2f}M params on {device}")
+    params = init_params(cfg, torch.Generator(device).manual_seed(0))
+    eng = ServeEngine(cfg, params, max_len=args.prompt + args.max_new,
+                      device=device)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(
+        0, cfg.vocab_size, (args.batch, args.prompt)
+    ).astype(np.int32)
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, max_new=args.max_new, temperature=0.7)
+    dt = time.perf_counter() - t0
+    print(f"generated {out.tokens.size} tokens in {dt:.2f}s "
+          f"({out.tokens.size / dt:.1f} tok/s)")
 
 
 def _op_stat(op: str, out) -> Any:
@@ -501,6 +539,112 @@ def frontend_smoke(args) -> None:
     overload_over_wire(engine, config, masks[0], masks[1])
     print("frontend smoke: overload answered 429 with Retry-After and the "
           "per-bucket shed counter moved", flush=True)
+
+
+def _wire_equal(got: dict, want: dict) -> Optional[str]:
+    """The first field of ``want`` that ``got`` does not hold bit for bit
+    (values, dtype and shape), or None."""
+    for field, arr in want.items():
+        a, b = np.asarray(arr), got.get(field)
+        if not (b is not None and np.array_equal(a, b) and a.dtype == b.dtype
+                and a.shape == b.shape):
+            return field
+    return None
+
+
+def op_smoke(args) -> None:
+    """End-to-end assert for the multi-op platform over loopback HTTP, on
+    the engine's device; the counterpart of ``repro.launch.serve.op_smoke``:
+
+      1. **per-op bit-identity** — for every registered op, one request
+         over ``POST /v1/{op}`` is BIT-IDENTICAL (values, dtypes, shapes)
+         to the op's reference function on the same input;
+      2. **pipeline == separate requests** — one ``POST /v1/pipeline``
+         compound request (denoise -> ychg, device-resident between
+         stages) equals feeding stage 1's wire output back as stage 2's
+         request, field for field;
+      3. **routing** — an unknown op answers 404 JSON naming the
+         registered ops, and ``/metrics`` exports the dispatch histogram
+         with one ``op=`` label per op served.
+
+    Exits nonzero on any failure.
+    """
+    import json
+
+    import torch
+
+    from repro_torch.engine import Engine
+    from repro_torch.engine.ops import get_op, op_names
+    from repro_torch.frontend import FrontendError, ServerThread, YCHGClient
+    from repro_torch.service import ServiceConfig, YCHGService
+
+    rng = np.random.default_rng(11)
+    inputs = {
+        "ychg": modis.snowfield(args.res, seed=0),
+        "ccl": modis.snowfield(args.res, seed=1),
+        "denoise": rng.random((args.res, args.res)).astype(np.float32),
+    }
+    engine = Engine(device=args.device)
+    cfg = ServiceConfig(bucket_sides=(args.res,), max_batch=args.batch)
+    with YCHGService(engine, cfg) as svc, \
+            ServerThread(svc) as srv, \
+            YCHGClient("127.0.0.1", srv.port) as client:
+        client.wait_ready(timeout=120.0)
+        for op in op_names():
+            x = inputs[op]
+            got = client.analyze(x, op=op)
+            spec = get_op(op)
+            # masks fill their bucket exactly (res == bucket side), so the
+            # service's crop is the identity and the wire result must equal
+            # the reference, rendered in the single-request (batched=False)
+            # layout the service serves
+            stack = torch.from_numpy(x)[None].to(engine.device)
+            want = spec.from_summary(spec.reference(stack), False).to_host()
+            bad = _wire_equal(got, want)
+            if bad is not None:
+                raise SystemExit(
+                    f"op smoke [{op}]: field {bad!r} not bit-identical to "
+                    f"the reference over the wire")
+            print(f"op smoke: /v1/{op} bit-identical to its reference on "
+                  f"{engine.device}", flush=True)
+
+        # pipeline leg: the compound request vs its stages as separate
+        # wire requests — the device-resident chain must be bit-exact
+        img = inputs["denoise"]
+        compound = client.pipeline(img, ["denoise", "ychg"])
+        stage1 = client.analyze(img, op="denoise")
+        stage2 = client.analyze(stage1["image"], op="ychg")
+        bad = _wire_equal(compound, stage2)
+        if bad is not None:
+            raise SystemExit(
+                f"op smoke [pipeline]: field {bad!r} of the compound "
+                f"denoise+ychg request differs from separate requests")
+        print("op smoke: /v1/pipeline denoise+ychg == the stages issued as "
+              "separate requests", flush=True)
+
+        # routing leg: unknown op -> 404 JSON naming the registry
+        try:
+            client.analyze(inputs["ychg"], op="warp")
+        except FrontendError as e:
+            if e.status != 404:
+                raise SystemExit(
+                    f"op smoke: unknown op answered {e.status}, wanted 404")
+            body = json.loads(str(e))
+            if sorted(body.get("ops", [])) != sorted(op_names()):
+                raise SystemExit(
+                    f"op smoke: 404 body named ops {body.get('ops')}, "
+                    f"wanted {sorted(op_names())}")
+        else:
+            raise SystemExit("op smoke: unknown op answered 200")
+        metrics = client.metrics_text()
+        for op in op_names():
+            needle = f'ychg_engine_dispatch_seconds_count{{op="{op}"'
+            if needle not in metrics:
+                raise SystemExit(
+                    f"op smoke: dispatch histogram missing an op={op!r} "
+                    f"series after serving it")
+        print("op smoke: unknown op answered 404 naming the registry; "
+              "dispatch histogram carries one op= label per op", flush=True)
 
 
 def slo_smoke(args) -> None:
@@ -1177,7 +1321,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("command", nargs="?", choices=["scene"],
                     help="optional subcommand: 'scene' runs a resumable "
                          "granule bulk job (repro_torch.scene)")
-    ap.add_argument("--workload", default="ychg", choices=["ychg"])
+    ap.add_argument("--workload", default="ychg", choices=["lm", "ychg"])
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="lm only: the architecture served")
+    ap.add_argument("--smoke", action="store_true",
+                    help="lm only: the architecture's reduced config")
+    ap.add_argument("--prompt", type=int, default=32,
+                    help="lm only: prompt tokens a request")
+    ap.add_argument("--max-new", type=int, default=32,
+                    help="lm only: tokens generated a request")
     ap.add_argument("--op", default="ychg", choices=["ychg", "ccl", "denoise"],
                     help="the operator the service runs on every mask")
     ap.add_argument("--res", type=int, default=1024)
@@ -1188,6 +1340,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--device", default=None, choices=["cpu", "cuda"],
                     help="default: the CUDA device; 'cpu' is the only way "
                          "onto the CPU")
+    ap.add_argument("--op-smoke", action="store_true",
+                    help="multi-op loopback assert (per-op wire "
+                         "bit-identity vs reference, pipeline == separate "
+                         "requests, 404 on unknown op)")
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="serve over HTTP until interrupted")
     ap.add_argument("--rpc-listen", default=None, metavar="HOST:PORT",
@@ -1264,6 +1420,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         fleet_smoke(args)
     elif args.fleet:
         serve_fleet(args)
+    elif args.op_smoke:
+        op_smoke(args)
     elif args.frontend_smoke:
         frontend_smoke(args)
     elif args.slo_smoke:
@@ -1272,8 +1430,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         serve_listen(args)
     elif args.connect:
         serve_connect(args)
-    else:
+    elif args.workload == "ychg":
         serve_ychg(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,9 @@ with ``--device cpu`` (so their ops resolve to the ``torch`` backends).
 Phase 7 lowers and runs its cells on the CPU (the memory probes answer 0,
 and the peak is not measured there), dry-runs the workload with the
 ``torch`` backend, and runs the five examples as processes with
-``--device cpu``.
+``--device cpu``. Phase 8 runs the LM checks on the reduced configs (the
+card and the CPU both the CPU) and the LM CLI and example with ``--device
+cpu``.
 """
 
 import json
@@ -82,6 +84,9 @@ REHEARSAL = textwrap.dedent("""
     cs.SLO_RES, cs.SLO_BATCH = 32, 2
     cs.PIPELINE_TILE, cs.ANYRES_TILE = 16, 32
     cs.STREAM_VMEM_BUDGET = 16384   # the 320-row tall strip takes split-H
+    cs.LM_SMOKE = True              # phase 8 on the reduced configs
+    cs.LM_CHECK_PROMPT, cs.LM_CHECK_NEW = 16, 8
+    cs.LM_PROMPT, cs.LM_NEW = 16, 8
     import repro_torch.sharding as shard
     every_device = shard.make_batch_mesh
     shard.make_batch_mesh = lambda axis_name="data", devices=None: (
@@ -275,6 +280,21 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
                  "roi_service_http", "roi_scene_bulk"):
         assert f"example: {name} exit 0" in out.stdout, name
     assert "phase 7 (lower, dry run, pipeline, examples): " in out.stdout
+    assert ("op smoke: launch.serve --op-smoke at 32^2 passed on the card"
+            in out.stdout)
+    assert "op smoke: /v1/pipeline denoise+ychg == the stages" in out.stdout
+    for label in ("qwen2-0.5b", "minicpm3-4b x2"):
+        assert f"lm [{label}]: " in out.stdout, label
+    assert "lm [qwen2-0.5b bfloat16]: ServeEngine.generate batch 8" in (
+        out.stdout)
+    for name in ("serve --workload lm", "examples.serve_lm"):
+        assert f"lm: {name} exit 0" in out.stdout, name
+    assert "the LM path launched none of the nine kernels" in out.stdout
+    lm = json.loads(next(line for line in lines
+                         if line.startswith("lm: {"))[4:])
+    assert lm["qwen2-0.5b bfloat16"]["decode_bound_ms"] > 0
+    for label in ("qwen2-0.5b", "minicpm3-4b x2"):
+        assert lm[label]["forward_max_abs"] <= lm[label]["bound"], label
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]
