@@ -160,21 +160,55 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      the 64 positions on the card against ``forward``, and the greedy
      tokens of ``ServeEngine.generate`` for 16 steps on the card against
      the CPU (a step may differ only where the CPU's top-2 logit gap is
-     under the bound, printed), all within 1e-3 of max|logit|; then
-     qwen2-0.5b at its own dtypes (bfloat16): ``ServeEngine.generate``,
+     under the bound, printed), all within 1e-3 of max|logit|; the same
+     for rwkv6-3b at full width and two layers; phi3.5-moe-42b-a6.6b at
+     full width and two layers, forward card against CPU at its own
+     capacity factor (experts recorded on both sides: a token whose
+     experts differ before any earlier difference must have a CPU router
+     gap under 1e-4, and only the tokens before the first difference are
+     compared) and decode against forward on the card at capacity factor
+     E (dropless); jamba-v0.1-52b at full width and one period (8 layers:
+     Mamba, attention, MoE) in float32 on the card alone (53 GB), decode
+     against forward at capacity factor E, then in bfloat16 through
+     ``ServeEngine.generate`` twice to equal greedy tokens; qwen2-0.5b
+     with int8 weights (float32 activations), ``decode_step`` over a
+     prompt card against CPU and greedy tokens equal; then
+     qwen2-0.5b and rwkv6-3b (full depth) at their own dtypes (bfloat16):
+     ``ServeEngine.generate``,
      batch 8, prompt 128, 64 new tokens, greedy, after a warm-up run twice
      to equal tokens, with prefill ms (CUDA events, median of 5) and
      decode ms a step (CUDA events, median of the 64 steps), tokens/s and
      ``max_memory_allocated`` beside the decode step's bound (parameter
-     bytes plus the KV cache bytes a step reads, over 3.35 TB/s) and the
+     bytes plus the cache or state bytes a step reads, over 3.35 TB/s) and the
      prefill's (two operations a parameter a token over the bfloat16
      peak); last ``python -m repro_torch.launch.serve
      --workload lm --arch qwen2-0.5b --batch 4 --prompt 32 --max-new 32``
      (the full config) and the ``serve_lm`` example, run together, each
-     exiting 0.
+     exiting 0;
+  9. training, every launch counter set to 0 just before (training
+     launches none of the nine kernels), TF32 off: qwen2-0.5b at full
+     width and two layers in float32, one ``make_train_step`` on the card
+     against the CPU from the same weights and batch (loss and grad_norm
+     within 1e-4 relative, the updated parameters within half the step's
+     lr), then ``grad_accum=2`` against one batch of twice the rows on the
+     card; qwen2-0.5b at full depth and its own dtypes (bfloat16
+     parameters, float32 moments): ``TrainLoop`` over ``TokenDataset``,
+     batch 8, seq 256, 20 steps with a checkpoint at step 10, the loss at
+     step 20 below step 1's, step ms (CUDA events, median) beside the
+     bound 6 x parameters x tokens over 989 TFLOP/s, tokens/s and
+     ``max_memory_allocated``; a second loop resumed from the step-10
+     checkpoint alone ends on the first loop's parameters, moments and
+     losses bit for bit (``torch.use_deterministic_algorithms``); last
+     ``python -m repro_torch.launch.train --arch qwen2-0.5b --steps 20
+     --batch 8 --seq 256`` and ``python -m repro_torch.examples.train_lm
+     --tiny --steps 20``, run together, each exiting 0.
 
-It prints phase 8's numbers as one ``lm:`` JSON line, the kernels' JSON
-line, the card line, and last ``{"ok": true, "device": {...}}``.
+It prints phase 8's numbers as one ``lm:`` JSON line and phase 9's as one
+``train:`` line, the kernels' JSON line, the card line, and last
+``{"ok": true, "device": {...}}``. llama4-maverick-400b-a17b has no leg:
+at full width and two layers it is 37.1 GB in bfloat16 and 74.2 GB in
+float32, so no float32 card-against-CPU check fits; the CPU tests hold it
+at its smoke size.
 """
 
 from __future__ import annotations
@@ -855,18 +889,30 @@ EXAMPLE_TIMEOUT_S = 300
 
 
 # phase 8: LM serving. The float32 checks (card against CPU) run qwen2-0.5b
-# at full width and minicpm3-4b (MLA) at full width and two layers; the
-# bfloat16 serving shape is qwen2-0.5b at its own dtypes; the CLI serves the
-# full config. The rehearsal sets LM_SMOKE to run the reduced configs.
+# at full width and minicpm3-4b (MLA), rwkv6-3b (RWKV-6) and
+# phi3.5-moe-42b-a6.6b (MoE) at full width and two layers; jamba-v0.1-52b
+# (Mamba + attention + MoE) at full width and one period (8 layers) on the
+# card alone, in float32 and then in bfloat16; qwen2-0.5b with int8
+# weights; the bfloat16 serving shape is qwen2-0.5b and rwkv6-3b (full
+# depth) at their own dtypes; the CLI serves the full config. The rehearsal
+# sets LM_SMOKE to run the reduced configs.
 LM_ARCH, LM_MLA_ARCH, LM_MLA_LAYERS = "qwen2-0.5b", "minicpm3-4b", 2
+LM_RWKV_ARCH, LM_MOE_ARCH = "rwkv6-3b", "phi3.5-moe-42b-a6.6b"
+LM_HYBRID_ARCH, LM_HYBRID_LAYERS = "jamba-v0.1-52b", 8
+LM_FAMILY_LAYERS = 2
 LM_SMOKE = False
 LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_NEW = 2, 64, 16
+LM_INT8_PROMPT, LM_INT8_NEW = 16, 8
 LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 64
 LM_PREFILL_SAMPLES = 5
 # the float32 bound, a share of max|logit| on the CPU: card against CPU,
 # decode against forward, and the top-2 gap under which a greedy token may
 # differ; stated before the first run on the card
 LM_REL_BOUND = 1e-3
+# the gap between a token's k-th and (k+1)-th router probabilities under
+# which its experts may differ between the card and the CPU (float32
+# probabilities one rounding apart); stated before the first run
+LM_ROUTE_GAP_BOUND = 1e-4
 LM_CLI = ("--workload", "lm", "--arch", LM_ARCH, "--batch", "4", "--prompt",
           "32", "--max-new", "32")
 LM_PROCESS_TIMEOUT_S = 300
@@ -880,17 +926,131 @@ def lm_config(name: str, **overrides):
     return cfg.scaled(**overrides)
 
 
-def lm_float32_check(np, torch, label: str, cfg, card: str) -> dict:
+def float32_config(name: str, **overrides):
+    return lm_config(name, param_dtype="float32", activation_dtype="float32",
+                     **overrides)
+
+
+def has_moe(cfg) -> bool:
+    return any(spec.channel == "moe" for spec in cfg.layer_pattern)
+
+
+def dropless(cfg):
+    """``cfg`` with a capacity factor of E, so that every expert has a slot
+    for every assignment and nothing drops: decode (T = B) and forward (T =
+    B x S) then route alike."""
+    return cfg.scaled(moe_capacity_factor=float(cfg.num_experts))
+
+
+def free_card(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+class RouteRecorder:
+    """While active, records each MoE layer's expert indices and router
+    probabilities as ``models.moe._route`` computes them, on the host."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._moe, self._route = moe, moe._route
+        torch = self.torch
+
+        def recording(p, xt, cfg):
+            gates, idx, aux = self._route(p, xt, cfg)
+            probs = torch.softmax(xt.float() @ p["router"].float(), dim=-1)
+            self.calls.append((idx.cpu(), probs.cpu()))
+            return gates, idx, aux
+
+        moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._route
+
+
+def route_ties(torch, card_calls, cpu_calls, k: int, label: str):
+    """(first flat token index whose experts differ, or None; the ties).
+    A token whose experts differ in a layer whose input still agrees (a
+    token before every earlier difference) is a tie: its CPU gap between
+    the k-th and (k+1)-th router probabilities must be under the bound.
+    Differences after the first are its consequences and are not held."""
+    check(len(card_calls) == len(cpu_calls),
+          f"{label}: {len(card_calls)} MoE layers on the card, "
+          f"{len(cpu_calls)} on the CPU")
+    first, ties = None, []
+    for layer, ((card_idx, _), (cpu_idx, cpu_probs)) in enumerate(
+            zip(card_calls, cpu_calls)):
+        differ = torch.nonzero((card_idx != cpu_idx).any(-1))[:, 0].tolist()
+        for t in differ:
+            if first is not None and t >= first:
+                continue
+            top = torch.topk(cpu_probs[t], k + 1).values
+            gap = float(top[k - 1] - top[k])
+            check(gap < LM_ROUTE_GAP_BOUND,
+                  f"{label}: token {t}'s experts differ on the card in MoE "
+                  f"layer {layer} with a router gap {gap} >= "
+                  f"{LM_ROUTE_GAP_BOUND}")
+            ties.append({"layer": layer, "token": t, "gap": gap})
+        if differ:
+            first = min(differ) if first is None else min(first, *differ)
+    return first, ties
+
+
+def decode_against_forward(torch, cfg, params, tokens) -> tuple:
+    """(forward's logits, max abs of ``decode_step`` over the prompt
+    against them), on the parameters' device."""
+    from repro_torch.models import decode_step, forward, init_cache
+
+    b, p = tokens.shape
+    full = forward(params, cfg, tokens)[0]
+    cache = init_cache(cfg, b, p, tokens.device)
+    steps = []
+    for i in range(p):
+        logits, cache = decode_step(params, cfg, cache, tokens[:, i:i + 1], i)
+        steps.append(logits)
+    return full, float((torch.stack(steps, 1) - full).abs().max())
+
+
+def greedy_ties(np, torch, label, cfg, host, prompt, got, want,
+                bound: float) -> list:
+    """Rows whose greedy tokens part between the card (``got``) and the
+    CPU (``want``): each may part only where the CPU's top-2 logit gap at
+    that step is under ``bound``."""
+    from repro_torch.models import forward
+
+    ties = []
+    for row in range(got.shape[0]):
+        differ = np.nonzero(got[row] != want[row])[0]
+        if not differ.size:
+            continue
+        k = int(differ[0])
+        seq = np.concatenate([prompt[row], want[row, :k]])[None]
+        last = forward(host, cfg, torch.from_numpy(seq))[0][0, -1]
+        top = torch.topk(last.float(), 2).values
+        gap = float(top[0] - top[1])
+        check(gap < bound, f"{label}: greedy token {k} of row {row} "
+                           f"differs on the card with a top-2 gap "
+                           f"{gap} >= {bound}")
+        ties.append({"row": row, "step": k, "gap": gap})
+        print(f"lm [{label}]: greedy row {row} parts at step {k}, a "
+              f"top-2 gap of {gap:.3e} under the bound", flush=True)
+    return ties
+
+
+def lm_float32_check(np, torch, label: str, cfg, card: str,
+                     greedy: bool = True) -> dict:
     """One model in float32 on the card against the same weights on the
-    CPU: ``forward``, ``decode_step`` over the prompt against ``forward``,
-    and ``ServeEngine.generate``'s greedy tokens."""
-    from repro_torch.models import (
-        count_params,
-        decode_step,
-        forward,
-        init_cache,
-        init_params,
-    )
+    CPU: ``forward`` (for a MoE model at its own capacity factor, with the
+    router-tie rule), ``decode_step`` over the prompt against ``forward``
+    on the card (a MoE model at a dropless capacity factor), and, with
+    ``greedy``, ``ServeEngine.generate``'s greedy tokens."""
+    from repro_torch.models import count_params, forward, init_params
     from repro_torch.models.layers import tree_map
     from repro_torch.serve import ServeEngine
 
@@ -901,91 +1061,206 @@ def lm_float32_check(np, torch, label: str, cfg, card: str) -> dict:
     prompt = np.random.default_rng(8).integers(
         0, cfg.vocab_size, (b, p)).astype(np.int32)
     tokens = torch.from_numpy(prompt)
+    moe = has_moe(cfg)
+    route = {}
     with torch.inference_mode():
-        on_card = forward(params, cfg, tokens.to(DEV))[0]
-        on_cpu = forward(host, cfg, tokens)[0]
+        with RouteRecorder(torch) as on_card_routes:
+            on_card = forward(params, cfg, tokens.to(DEV))[0]
+        with RouteRecorder(torch) as on_cpu_routes:
+            on_cpu = forward(host, cfg, tokens)[0]
         scale = float(on_cpu.abs().max())
         bound = LM_REL_BOUND * scale
-        err = float((on_card.cpu() - on_cpu).abs().max())
+        compared = b * p
+        if moe:
+            first, ties = route_ties(torch, on_card_routes.calls,
+                                     on_cpu_routes.calls,
+                                     cfg.experts_per_token, label)
+            compared = compared if first is None else first
+            check(compared > 0, f"{label}: the first token's experts differ")
+            route = {"moe_layers": len(on_cpu_routes.calls),
+                     "route_ties": ties, "tokens_compared": compared}
+        err = float((on_card.cpu().reshape(b * p, -1)[:compared]
+                     - on_cpu.reshape(b * p, -1)[:compared]).abs().max())
         check(err <= bound, f"{label}: forward on the card differs from the "
                             f"CPU by {err} > {bound}")
-        cache = init_cache(cfg, b, p, DEV)
-        steps = []
-        for i in range(p):
-            logits, cache = decode_step(params, cfg, cache,
-                                        tokens[:, i:i + 1].to(DEV), i)
-            steps.append(logits)
-        dec_err = float((torch.stack(steps, 1) - on_card).abs().max())
+        del on_card, on_cpu
+        dcfg = dropless(cfg) if moe else cfg
+        _, dec_err = decode_against_forward(torch, dcfg, params,
+                                            tokens.to(DEV))
         check(dec_err <= bound, f"{label}: decode_step on the card differs "
                                 f"from forward by {dec_err} > {bound}")
-        del on_card, on_cpu, cache, steps
-        got = ServeEngine(cfg, params, p + new, device=DEV).generate(
-            prompt, new).tokens
-        want = ServeEngine(cfg, host, p + new, device="cpu").generate(
-            prompt, new).tokens
         ties = []
-        for row in range(b):
-            differ = np.nonzero(got[row] != want[row])[0]
-            if not differ.size:
-                continue
-            k = int(differ[0])
-            seq = np.concatenate([prompt[row], want[row, :k]])[None]
-            last = forward(host, cfg, torch.from_numpy(seq))[0][0, -1]
-            top = torch.topk(last.float(), 2).values
-            gap = float(top[0] - top[1])
-            check(gap < bound, f"{label}: greedy token {k} of row {row} "
-                               f"differs on the card with a top-2 gap "
-                               f"{gap} >= {bound}")
-            ties.append({"row": row, "step": k, "gap": gap})
-            print(f"lm [{label}]: greedy row {row} parts at step {k}, a "
-                  f"top-2 gap of {gap:.3e} under the bound", flush=True)
+        if greedy:
+            got = ServeEngine(cfg, params, p + new, device=DEV).generate(
+                prompt, new).tokens
+            want = ServeEngine(cfg, host, p + new, device="cpu").generate(
+                prompt, new).tokens
+            ties = greedy_ties(np, torch, label, cfg, host, prompt, got,
+                               want, bound)
+    del params, host
+    free_card(torch)
     print(f"lm [{label}]: {count_params(cfg):,} params float32, prompt "
           f"{b} x {p}: forward on the card against the CPU max abs "
           f"{err:.3e} (relative to max|logit| {scale:.4f}: "
-          f"{err / scale:.3e}); decode_step over {p} positions against "
-          f"forward max abs {dec_err:.3e}; bound {bound:.3e} "
-          f"({LM_REL_BOUND:g} of max|logit|); greedy tokens of "
-          f"ServeEngine.generate equal for {new} steps "
-          f"{'except at ' + json.dumps(ties) if ties else 'in every row'}; "
-          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+          f"{err / scale:.3e})"
+          + (f" over the first {compared} of {b * p} tokens, at capacity "
+             f"factor {cfg.moe_capacity_factor:g}, experts equal in "
+             f"{route['moe_layers']} MoE layers "
+             f"{'except at ' + json.dumps(route['route_ties']) if route['route_ties'] else 'for every token'}"
+             if moe else "")
+          + f"; decode_step over {p} positions against forward max abs "
+          f"{dec_err:.3e}"
+          + (f" (dropless capacity factor {dcfg.moe_capacity_factor:g})"
+             if moe else "")
+          + f"; bound {bound:.3e} ({LM_REL_BOUND:g} of max|logit|)"
+          + (f"; greedy tokens of ServeEngine.generate equal for {new} "
+             f"steps "
+             f"{'except at ' + json.dumps(ties) if ties else 'in every row'}"
+             if greedy else "")
+          + f"; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
     return {"forward_max_abs": err, "decode_max_abs": dec_err,
-            "max_logit": scale, "bound": bound, "greedy_ties": ties}
+            "max_logit": scale, "bound": bound, "greedy_ties": ties, **route}
 
 
-def lm_phase(np, torch, card: str) -> dict:
-    """Phase 8: LM serving on the card, every kernel launch counter set to
-    0 just before (the LM path launches none of the nine kernels)."""
-    from repro_torch.kernels import ccl as kccl
-    from repro_torch.kernels import denoise as kdn
-    from repro_torch.kernels import ychg_colscan as kc
-    from repro_torch.kernels import ychg_fused as kf
-    from repro_torch.kernels import ychg_packed as kp
+def lm_card_check(np, torch, label: str, cfg, card: str) -> dict:
+    """A model too large for a float32 copy on the CPU side: on the card
+    alone, ``decode_step`` over the prompt against ``forward``, at a
+    dropless capacity factor."""
+    from repro_torch.models import count_params, init_params
+
+    t0 = time.perf_counter()
+    cfg = dropless(cfg) if has_moe(cfg) else cfg
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    prompt = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (LM_CHECK_BATCH, LM_CHECK_PROMPT)).astype(np.int32)
+    with torch.inference_mode():
+        full, dec_err = decode_against_forward(
+            torch, cfg, params, torch.from_numpy(prompt).to(DEV))
+        scale = float(full.abs().max())
+        finite = bool(torch.isfinite(full).all())
+    bound = LM_REL_BOUND * scale
+    peak = torch.cuda.max_memory_allocated()
+    del params, full
+    free_card(torch)
+    check(finite, f"{label}: forward on the card is not finite")
+    check(dec_err <= bound, f"{label}: decode_step on the card differs from "
+                            f"forward by {dec_err} > {bound}")
+    print(f"lm [{label}]: {count_params(cfg):,} params float32 on the card "
+          f"alone, prompt {LM_CHECK_BATCH} x {LM_CHECK_PROMPT}, capacity "
+          f"factor {cfg.moe_capacity_factor:g} (dropless): decode_step "
+          f"against forward max abs {dec_err:.3e}, bound {bound:.3e} "
+          f"({LM_REL_BOUND:g} of max|logit| {scale:.4f}); "
+          f"max_memory_allocated {peak:,} B; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return {"decode_max_abs": dec_err, "max_logit": scale, "bound": bound,
+            "max_memory_allocated": peak}
+
+
+def lm_generate_twice(np, torch, label: str, cfg, card: str) -> dict:
+    """``ServeEngine.generate`` at the model's own dtypes, greedy, twice:
+    equal tokens of the right shape."""
+    from repro_torch.models import count_params, init_params
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    prompt = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_CHECK_BATCH, LM_CHECK_PROMPT)).astype(np.int32)
+    eng = ServeEngine(cfg, params, LM_CHECK_PROMPT + LM_CHECK_NEW, device=DEV)
+    runs = [eng.generate(prompt, LM_CHECK_NEW).tokens for _ in range(2)]
+    del params, eng
+    free_card(torch)
+    check(np.array_equal(runs[0], runs[1]),
+          f"{label}: two greedy runs gave different tokens")
+    check(runs[0].shape == (LM_CHECK_BATCH, LM_CHECK_NEW),
+          f"{label}: tokens of shape {runs[0].shape}")
+    seconds = time.perf_counter() - t0
+    print(f"lm [{label}]: {count_params(cfg):,} params {cfg.param_dtype}: "
+          f"ServeEngine.generate batch {LM_CHECK_BATCH}, prompt "
+          f"{LM_CHECK_PROMPT}, {LM_CHECK_NEW} new tokens, greedy, two runs "
+          f"equal; {seconds:.1f} s with the init; {card}", flush=True)
+    return {"tokens_equal": True, "seconds": seconds}
+
+
+def lm_int8_check(np, torch, label: str, cfg, card: str) -> dict:
+    """int8 weights (float32 activations, TF32 off): ``decode_step`` over
+    a prompt and then greedy on the card against the same quantised tree
+    on the CPU (each group dequantized just before it runs); the greedy
+    tokens equal, or parting only at a top-2 gap under the bound."""
+    from repro_torch.models import count_params, decode_step, init_cache
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves_with_path, tree_map
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    int8 = sum(t.numel() for _, t in tree_leaves_with_path(params)
+               if t.dtype == torch.int8)
+    check(int8 > 0, f"{label}: no int8 leaves")
+    host = tree_map(lambda t: t.cpu(), params)
+    b, p, new = LM_CHECK_BATCH, LM_INT8_PROMPT, LM_INT8_NEW
+    prompt = np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (b, p)).astype(np.int32)
+    caches = {"card": init_cache(cfg, b, p + new, DEV),
+              "cpu": init_cache(cfg, b, p + new, "cpu")}
+    trees = {"card": params, "cpu": host}
+    logits = {"card": [], "cpu": []}
+    tokens = {"card": [], "cpu": []}
+    with torch.inference_mode():
+        for side, dev in (("card", DEV), ("cpu", "cpu")):
+            tok = None
+            for i in range(p + new - 1):
+                t = (torch.from_numpy(prompt[:, i:i + 1]) if i < p
+                     else tok).to(dev)
+                out, caches[side] = decode_step(trees[side], cfg,
+                                                caches[side], t, i)
+                logits[side].append(out.cpu())
+                if i >= p - 1:
+                    tok = torch.argmax(out, dim=-1)[:, None].to(torch.int32)
+                    tokens[side].append(tok.cpu())
+    card_logits = torch.stack(logits["card"][:p], 1)
+    cpu_logits = torch.stack(logits["cpu"][:p], 1)
+    scale = float(cpu_logits.abs().max())
+    bound = LM_REL_BOUND * scale
+    err = float((card_logits - cpu_logits).abs().max())
+    got = torch.cat(tokens["card"], 1).numpy()
+    want = torch.cat(tokens["cpu"], 1).numpy()
+    del params, caches, trees
+    free_card(torch)
+    check(err <= bound, f"{label}: decode_step on the card differs from the "
+                        f"CPU by {err} > {bound}")
+    ties = []
+    for row in range(b):
+        differ = np.nonzero(got[row] != want[row])[0]
+        if differ.size:   # the CPU's top-2 gap at the first parting step
+            k = int(differ[0])
+            top = torch.topk(logits["cpu"][p - 1 + k][row].float(), 2).values
+            gap = float(top[0] - top[1])
+            check(gap < bound, f"{label}: greedy token {k} of row {row} "
+                               f"differs with a top-2 gap {gap} >= {bound}")
+            ties.append({"row": row, "step": k, "gap": gap})
+    del host
+    print(f"lm [{label}]: {count_params(cfg):,} params ({int8:,} int8), "
+          f"float32 activations: decode_step over {p} prompt positions on "
+          f"the card against the CPU max abs {err:.3e}, bound {bound:.3e} "
+          f"({LM_REL_BOUND:g} of max|logit| {scale:.4f}); greedy tokens "
+          f"for {new} steps "
+          f"{'equal except at ' + json.dumps(ties) if ties else 'equal in every row'}"
+          f"; {time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return {"decode_max_abs": err, "max_logit": scale, "bound": bound,
+            "int8_params": int8, "greedy_ties": ties}
+
+
+def lm_serving_leg(np, torch, label: str, cfg, card: str) -> dict:
+    """The serving shape at the model's own dtypes: ``ServeEngine.generate``
+    batch 8, prompt 128, 64 new tokens, greedy, after a warm-up run twice
+    to equal tokens; prefill ms and decode ms a step by CUDA events, each
+    beside its bound, tokens/s and ``max_memory_allocated``."""
     from repro_torch.launch.roofline import PEAK_BYTES_PER_S
-    from repro_torch.launch.serve import export_pythonpath
     from repro_torch.models import count_params, init_params
     from repro_torch.models.layers import tree_leaves_with_path
     from repro_torch.serve import ServeEngine
 
-    t_phase = time.perf_counter()
-    modules = (kf, kc, kdn, kccl, kp)
-    for module in modules:
-        module.reset_launch_counts()
-    # float32 is float32 on the card only with TF32 off
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    report = {}
-    for label, cfg in [
-            (LM_ARCH, lm_config(LM_ARCH, param_dtype="float32",
-                                activation_dtype="float32")),
-            (f"{LM_MLA_ARCH} x{LM_MLA_LAYERS}",
-             lm_config(LM_MLA_ARCH, num_layers=LM_MLA_LAYERS,
-                       param_dtype="float32", activation_dtype="float32"))]:
-        report[label] = lm_float32_check(np, torch, label, cfg, card)
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-
-    # the serving shape at the model's own dtypes
-    cfg = lm_config(LM_ARCH)
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
     prompts = np.random.default_rng(9).integers(
         0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
@@ -1000,9 +1275,9 @@ def lm_phase(np, torch, card: str) -> dict:
         seconds.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     check(np.array_equal(runs[0], runs[1]),
-          f"{LM_ARCH} bfloat16: two greedy runs gave different tokens")
+          f"{label}: two greedy runs gave different tokens")
     check(runs[0].shape == (LM_BATCH, LM_NEW),
-          f"{LM_ARCH} bfloat16: tokens of shape {runs[0].shape}")
+          f"{label}: tokens of shape {runs[0].shape}")
 
     def event():
         return torch.cuda.Event(enable_timing=True)
@@ -1035,17 +1310,15 @@ def lm_phase(np, torch, card: str) -> dict:
                       for _, t in tree_leaves_with_path(params))
     bound_ms = (param_bytes + cache_bytes) / PEAK_BYTES_PER_S * 1e3
     n_params = count_params(cfg)
-    # prefill: two operations a parameter a token (the tied head reads the
-    # embedding once more as the output projection), bf16 tensor-core peak
+    # prefill: two operations a parameter a token, bf16 tensor-core peak
     prefill_bound_ms = max(
         2 * n_params * LM_BATCH * LM_PROMPT / 989e12,
         (param_bytes + cache_bytes * LM_PROMPT / (LM_PROMPT + LM_NEW))
         / PEAK_BYTES_PER_S) * 1e3
     tok_s = [LM_BATCH * LM_NEW / t for t in seconds]
     del params, eng, cache, logits, tokens
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    print(f"lm [{LM_ARCH} bfloat16]: ServeEngine.generate batch {LM_BATCH}, "
+    free_card(torch)
+    print(f"lm [{label}]: ServeEngine.generate batch {LM_BATCH}, "
           f"prompt {LM_PROMPT}, {LM_NEW} new tokens, greedy, two runs equal; "
           f"generate {json.dumps([round(t, 4) for t in seconds])} s "
           f"({json.dumps([round(t, 1) for t in tok_s])} tokens/s); prefill "
@@ -1055,29 +1328,24 @@ def lm_phase(np, torch, card: str) -> dict:
           f"{decode_ms:.3f} ms a step (median of {LM_NEW}, CUDA events; "
           f"min {min(step_ms):.3f}, max {max(step_ms):.3f}) against a bound "
           f"of {bound_ms:.3f} ms ({param_bytes:,} parameter bytes + "
-          f"{cache_bytes:,} KV cache bytes a step over "
+          f"{cache_bytes:,} cache bytes a step over "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s): {bound_ms / decode_ms:.1%} "
           f"of the bound; max_memory_allocated {peak:,} B; {card}",
           flush=True)
-    report[f"{LM_ARCH} bfloat16"] = {
-        "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
-        "generate_s": seconds, "tokens_per_s": tok_s,
-        "prefill_ms": prefill_ms, "prefill_samples_ms": prefill,
-        "prefill_bound_ms": prefill_bound_ms,
-        "decode_ms": decode_ms, "decode_step_ms": step_ms,
-        "decode_bound_ms": bound_ms, "param_bytes": param_bytes,
-        "cache_bytes": cache_bytes, "max_memory_allocated": peak}
+    return {"batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+            "generate_s": seconds, "tokens_per_s": tok_s,
+            "prefill_ms": prefill_ms, "prefill_samples_ms": prefill,
+            "prefill_bound_ms": prefill_bound_ms,
+            "decode_ms": decode_ms, "decode_step_ms": step_ms,
+            "decode_bound_ms": bound_ms, "param_bytes": param_bytes,
+            "cache_bytes": cache_bytes, "max_memory_allocated": peak}
 
-    # the CLI at the full config and the serve_lm example, as a user runs
-    # them, together
-    export_pythonpath()
-    flag = ["--device", "cpu"] if DEV == "cpu" else []
-    commands = {
-        "serve --workload lm": [sys.executable, "-m",
-                                "repro_torch.launch.serve", *LM_CLI, *flag,
-                                *(["--smoke"] if LM_SMOKE else [])],
-        "examples.serve_lm": [sys.executable, "-m",
-                              "repro_torch.examples.serve_lm", *flag]}
+
+def run_together(commands: dict, tag: str, timeout: float) -> float:
+    """Starts every command at once, waits for all, fails on a non-zero
+    exit (quoting its stderr's tail), prints each one's output; returns
+    the seconds they took together. Kills what is still running on the
+    way out."""
     t0 = time.perf_counter()
     procs = {name: subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)
@@ -1085,7 +1353,7 @@ def lm_phase(np, torch, card: str) -> dict:
     outs = {}
     try:
         for name, proc in procs.items():
-            outs[name] = proc.communicate(timeout=LM_PROCESS_TIMEOUT_S)
+            outs[name] = proc.communicate(timeout=timeout)
     finally:
         for proc in procs.values():
             if proc.poll() is None:
@@ -1095,18 +1363,346 @@ def lm_phase(np, torch, card: str) -> dict:
         out, err = outs.get(name, ("", ""))
         check(proc.returncode == 0,
               f"{name} exited {proc.returncode}: {err[-2000:]}")
-        print(f"lm: {name} exit 0; output: "
+        print(f"{tag}: {name} exit 0; output: "
               f"{' | '.join(out.strip().splitlines())}", flush=True)
-    print(f"lm: the CLI and the example exited 0 in "
-          f"{time.perf_counter() - t0:.1f} s (run together)", flush=True)
+    return time.perf_counter() - t0
 
+
+def kernel_modules():
+    from repro_torch.kernels import ccl as kccl
+    from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import ychg_colscan as kc
+    from repro_torch.kernels import ychg_fused as kf
+    from repro_torch.kernels import ychg_packed as kp
+
+    return (kf, kc, kdn, kccl, kp)
+
+
+def reset_kernel_counts() -> tuple:
+    modules = kernel_modules()
+    for module in modules:
+        module.reset_launch_counts()
+    return modules
+
+
+def check_no_kernel_launched(modules, what: str) -> dict:
     launches = {}
     for module in modules:
         launches.update(module.LAUNCHES)
     check(not any(launches.values()),
-          f"the LM path launched a yCHG kernel: {launches}")
+          f"{what} launched a yCHG kernel: {launches}")
+    return launches
+
+
+def lm_phase(np, torch, card: str) -> dict:
+    """Phase 8: LM serving on the card, every kernel launch counter set to
+    0 just before (the LM path launches none of the nine kernels)."""
+    from repro_torch.launch.serve import export_pythonpath
+
+    t_phase = time.perf_counter()
+    modules = reset_kernel_counts()
+    # float32 is float32 on the card only with TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    family = LM_FAMILY_LAYERS
+    for label, cfg, greedy in [
+            (LM_ARCH, float32_config(LM_ARCH), True),
+            (f"{LM_MLA_ARCH} x{LM_MLA_LAYERS}",
+             float32_config(LM_MLA_ARCH, num_layers=LM_MLA_LAYERS), True),
+            (f"{LM_RWKV_ARCH} x{family}",
+             float32_config(LM_RWKV_ARCH, num_layers=family), True),
+            (f"{LM_MOE_ARCH} x{family}",
+             float32_config(LM_MOE_ARCH, num_layers=family), False)]:
+        report[label] = lm_float32_check(np, torch, label, cfg, card, greedy)
+    label = f"{LM_HYBRID_ARCH} x{LM_HYBRID_LAYERS}"
+    report[label] = lm_card_check(
+        np, torch, label,
+        float32_config(LM_HYBRID_ARCH, num_layers=LM_HYBRID_LAYERS), card)
+    report[f"{label} bfloat16"] = lm_generate_twice(
+        np, torch, f"{label} bfloat16",
+        lm_config(LM_HYBRID_ARCH, num_layers=LM_HYBRID_LAYERS), card)
+    report[f"{LM_ARCH} int8"] = lm_int8_check(
+        np, torch, f"{LM_ARCH} int8",
+        float32_config(LM_ARCH, weight_quant="int8"), card)
+    # the serving shape at the models' own dtypes
+    for arch in (LM_ARCH, LM_RWKV_ARCH):
+        report[f"{arch} bfloat16"] = lm_serving_leg(
+            np, torch, f"{arch} bfloat16", lm_config(arch), card)
+
+    # the CLI at the full config and the serve_lm example, as a user runs
+    # them, together
+    export_pythonpath()
+    flag = ["--device", "cpu"] if DEV == "cpu" else []
+    seconds = run_together({
+        "serve --workload lm": [sys.executable, "-m",
+                                "repro_torch.launch.serve", *LM_CLI, *flag,
+                                *(["--smoke"] if LM_SMOKE else [])],
+        "examples.serve_lm": [sys.executable, "-m",
+                              "repro_torch.examples.serve_lm", *flag]},
+        "lm", LM_PROCESS_TIMEOUT_S)
+    print(f"lm: the CLI and the example exited 0 in {seconds:.1f} s (run "
+          f"together)", flush=True)
+
+    launches = check_no_kernel_launched(modules, "the LM path")
     print(f"phase 8 (LM serving): {time.perf_counter() - t_phase:.1f} s; "
           f"the LM path launched none of the nine kernels "
+          f"{json.dumps(launches)}", flush=True)
+    return report
+
+
+# phase 9: training. qwen2-0.5b at full width: two layers in float32 (TF32
+# off), one train step on the card against the CPU from the same weights
+# and batch, then grad_accum=2 against one batch of twice the rows on the
+# card; at full depth and its own dtypes (bfloat16 parameters, float32
+# moments) TrainLoop over TokenDataset, batch 8, seq 256, 20 steps with a
+# checkpoint at 10, and a second loop resumed from it; the CLI and the
+# train_lm example as processes. The rehearsal sets LM_SMOKE (the reduced
+# config) and TRAIN_PATTERNS (a dataset whose patterns a 256-token
+# vocabulary can tell apart).
+TRAIN_ARCH, TRAIN_CHECK_LAYERS = "qwen2-0.5b", 2
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 64
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_RESUME_AT = 8, 256, 20, 10
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 2
+TRAIN_PATTERNS = 64          # TokenDatasetConfig's default
+# the float32 bounds, stated before the first run on the card: loss and
+# grad_norm relative, the updated parameters absolute as a share of the
+# step's lr (AdamW moves a component whose gradient is at rounding level
+# by up to its share of lr in either order of summation)
+TRAIN_REL_BOUND = 1e-4
+TRAIN_PARAM_LR_SHARE = 0.5
+# H100 SXM tensor-core bfloat16 peak, dense (NVIDIA H100 datasheet)
+BF16_PEAK_FLOPS = 989e12
+TRAIN_CLI = ("--arch", TRAIN_ARCH, "--steps", "20", "--batch", "8", "--seq",
+             "256")
+
+
+def tree_max_abs(a, b) -> float:
+    from repro_torch.models.layers import tree_leaves_with_path
+
+    other = dict(tree_leaves_with_path(b))
+    return max(float((t.float().cpu() - other[path].float().cpu()).abs().max())
+               for path, t in tree_leaves_with_path(a))
+
+
+def train_float32_check(np, torch, card: str) -> dict:
+    """One ``make_train_step`` on the card against the CPU from the same
+    float32 weights and batch (loss, grad_norm, the updated parameters),
+    then ``grad_accum=2`` against one batch of twice the rows on the
+    card."""
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.layers import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = float32_config(TRAIN_ARCH, num_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    host = tree_map(lambda t: t.cpu(), params)
+    batch = TokenDataset(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=2 * TRAIN_CHECK_BATCH)).batch(0)
+    half = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    # the schedule's peak at once, so the step moves the parameters
+    step = make_train_step(cfg, warmup_steps=0)
+    p_card, _, m_card = step(params, adamw_init(params), half)
+    p_cpu, _, m_cpu = step(host, adamw_init(host), half)
+    lr = float(m_cpu["lr"])
+    out = {"lr": lr, "param_bound": TRAIN_PARAM_LR_SHARE * lr}
+    for name in ("loss", "grad_norm"):
+        a, b = float(m_card[name]), float(m_cpu[name])
+        out[f"{name}_rel"] = abs(a - b) / abs(b)
+        out[name] = b
+        check(out[f"{name}_rel"] <= TRAIN_REL_BOUND,
+              f"train float32: {name} on the card {a} against the CPU {b}")
+    out["param_max_abs"] = tree_max_abs(p_card, p_cpu)
+    check(out["param_max_abs"] <= out["param_bound"],
+          f"train float32: updated parameters differ by "
+          f"{out['param_max_abs']} > {out['param_bound']}")
+    del p_cpu, host
+    whole = step(params, adamw_init(params), batch)
+    accum = make_train_step(cfg, warmup_steps=0, grad_accum=2)(
+        params, adamw_init(params), batch)
+    out["accum_loss_rel"] = abs(float(accum[2]["loss"])
+                                - float(whole[2]["loss"])) / abs(
+                                    float(whole[2]["loss"]))
+    out["accum_param_max_abs"] = tree_max_abs(accum[0], whole[0])
+    check(out["accum_loss_rel"] <= TRAIN_REL_BOUND,
+          f"train float32: grad_accum=2 loss differs by "
+          f"{out['accum_loss_rel']} (relative)")
+    check(out["accum_param_max_abs"] <= out["param_bound"],
+          f"train float32: grad_accum=2 parameters differ by "
+          f"{out['accum_param_max_abs']} > {out['param_bound']}")
+    del params, p_card, whole, accum
+    free_card(torch)
+    print(f"train [{TRAIN_ARCH} x{TRAIN_CHECK_LAYERS} float32]: "
+          f"{count_params(cfg):,} params, batch {TRAIN_CHECK_BATCH} x "
+          f"{TRAIN_CHECK_SEQ}, one train step at lr {lr:g}: loss on the card "
+          f"against the CPU relative {out['loss_rel']:.3e}, grad_norm "
+          f"{out['grad_norm_rel']:.3e} (bound {TRAIN_REL_BOUND:g}), updated "
+          f"parameters max abs {out['param_max_abs']:.3e} (bound "
+          f"{out['param_bound']:.3e}, {TRAIN_PARAM_LR_SHARE:g} of lr); "
+          f"grad_accum=2 against one batch of {2 * TRAIN_CHECK_BATCH} on "
+          f"the card: loss relative {out['accum_loss_rel']:.3e}, parameters "
+          f"max abs {out['accum_param_max_abs']:.3e}; "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return out
+
+
+def train_loop_leg(np, torch, card: str) -> dict:
+    """``TrainLoop`` at full depth and the model's own dtypes: 20 steps
+    with a checkpoint at 10 (loss falling, step ms by CUDA events beside
+    the 6 x parameters x tokens bound, tokens/s, peak memory), then a
+    second loop resumed from the step-10 checkpoint alone, ending on the
+    uninterrupted run's parameters and moments, bit for bit under
+    ``torch.use_deterministic_algorithms``."""
+    import shutil
+
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.layers import tree_leaves_with_path
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainLoop, TrainLoopConfig, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = lm_config(TRAIN_ARCH)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    ds = TokenDataset(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, n_patterns=TRAIN_PATTERNS))
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS)
+    marks, losses = [], {}
+
+    def timed(p, o, batch):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = step(p, o, batch)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    def batches(start):
+        return (ds.batch(i) for i in range(start, TRAIN_STEPS))
+
+    def log(into):
+        return lambda s, m: into.__setitem__(s, m["loss"])
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            first_dir = os.path.join(tmp, "run")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_run = time.perf_counter()
+            loop = TrainLoop(timed, TrainLoopConfig(
+                total_steps=TRAIN_STEPS, ckpt_dir=first_dir,
+                ckpt_every=TRAIN_RESUME_AT, log_every=1), log_fn=log(losses))
+            p_run, o_run, end = loop.run(params, adamw_init(params),
+                                         batches(0))
+            run_s = time.perf_counter() - t_run
+            peak = torch.cuda.max_memory_allocated()
+            step_ms = [a.elapsed_time(b) for a, b in marks]
+            # the job killed after step 10's save: a directory with that
+            # checkpoint alone
+            resume_dir = os.path.join(tmp, "resumed")
+            os.makedirs(resume_dir)
+            name = f"step_{TRAIN_RESUME_AT:08d}"
+            shutil.copytree(os.path.join(first_dir, name),
+                            os.path.join(resume_dir, name))
+            shutil.rmtree(first_dir)
+            resumed_losses = {}
+            loop2 = TrainLoop(step, TrainLoopConfig(
+                total_steps=TRAIN_STEPS, ckpt_dir=resume_dir,
+                ckpt_every=TRAIN_STEPS * 10, log_every=1),
+                log_fn=log(resumed_losses))
+            p2, o2, start = loop2.resume_or_init(params, adamw_init(params))
+            check(start == TRAIN_RESUME_AT,
+                  f"train: resumed at step {start}, not {TRAIN_RESUME_AT}")
+            p2, o2, end2 = loop2.run(p2, o2, batches(start), start_step=start)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    check(end == end2 == TRAIN_STEPS, f"train: loops ended at {end}, {end2}")
+    check(loop.nan_skips == loop2.nan_skips == 0, "train: a NaN step")
+    differ = [("/".join(path), float((leaf.float() - dict(
+        tree_leaves_with_path(tree2))[path].float()).abs().max()))
+        for tree, tree2 in ((p_run, p2), (o_run.mu, o2.mu), (o_run.nu, o2.nu))
+        for path, leaf in tree_leaves_with_path(tree)
+        if not torch.equal(leaf, dict(tree_leaves_with_path(tree2))[path])]
+    check(int(o2.step) == int(o_run.step) == TRAIN_STEPS,
+          f"train: optimiser steps {int(o_run.step)}, {int(o2.step)}")
+    check(not differ, f"train: the resumed run's state differs from the "
+                      f"uninterrupted run's in {len(differ)} leaves, e.g. "
+                      f"{differ[:3]}")
+    check(all(resumed_losses[s] == losses[s]
+              for s in range(TRAIN_RESUME_AT + 1, TRAIN_STEPS + 1)),
+          "train: the resumed run's losses differ")
+    check(losses[TRAIN_STEPS] < losses[1],
+          f"train: loss at step {TRAIN_STEPS} {losses[TRAIN_STEPS]} is not "
+          f"below step 1's {losses[1]}")
+    n_params = count_params(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    median_ms = statistics.median(step_ms[1:])
+    bound_ms = 6 * n_params * tokens / BF16_PEAK_FLOPS * 1e3
+    del params, p_run, o_run, p2, o2
+    free_card(torch)
+    out = {"params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": TRAIN_STEPS, "losses": [losses[s] for s in sorted(losses)],
+           "step_ms": step_ms, "median_step_ms": median_ms,
+           "bound_ms": bound_ms, "tokens_per_s": tokens / median_ms * 1e3,
+           "run_s": run_s, "max_memory_allocated": peak,
+           "resumed_at": TRAIN_RESUME_AT, "resume_bit_equal": True}
+    print(f"train [{TRAIN_ARCH} {cfg.param_dtype}]: {n_params:,} params, "
+          f"TrainLoop batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps "
+          f"(lr {TRAIN_LR:g}, warm-up {TRAIN_WARMUP}), checkpoint at "
+          f"{TRAIN_RESUME_AT}: loss {losses[1]:.4f} at step 1 -> "
+          f"{losses[TRAIN_STEPS]:.4f} at step {TRAIN_STEPS}; step "
+          f"{median_ms:.3f} ms (median of steps 2-{TRAIN_STEPS}, CUDA events; "
+          f"min {min(step_ms[1:]):.3f}, max {max(step_ms[1:]):.3f}; the "
+          f"first {step_ms[0]:.3f}) against a bound of {bound_ms:.3f} ms (6 x "
+          f"{n_params:,} x {tokens} tokens over {BF16_PEAK_FLOPS / 1e12:.0f} "
+          f"TFLOP/s): {bound_ms / median_ms:.1%} of the bound; "
+          f"{out['tokens_per_s']:.1f} tokens/s; loop with its two saves "
+          f"{run_s:.1f} s; max_memory_allocated {peak:,} B; resumed from step "
+          f"{TRAIN_RESUME_AT} to {TRAIN_STEPS}: parameters, moments and "
+          f"losses equal to the uninterrupted run's bit for bit "
+          f"(deterministic algorithms); {time.perf_counter() - t0:.1f} s; "
+          f"{card}", flush=True)
+    return out
+
+
+def train_phase(np, torch, card: str) -> dict:
+    """Phase 9: training on the card, every kernel launch counter set to 0
+    just before (training launches none of the nine kernels)."""
+    from repro_torch.launch.serve import export_pythonpath
+
+    t_phase = time.perf_counter()
+    modules = reset_kernel_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"float32": train_float32_check(np, torch, card),
+              "loop": train_loop_leg(np, torch, card)}
+
+    export_pythonpath()
+    flag = ["--device", "cpu"] if DEV == "cpu" else []
+    with tempfile.TemporaryDirectory() as ckpt:
+        seconds = run_together({
+            "launch.train": [sys.executable, "-m",
+                             "repro_torch.launch.train", *TRAIN_CLI, *flag,
+                             *(["--smoke"] if LM_SMOKE else [])],
+            "examples.train_lm": [sys.executable, "-m",
+                                  "repro_torch.examples.train_lm", "--tiny",
+                                  "--steps", "20", "--ckpt", ckpt, *flag]},
+            "train", LM_PROCESS_TIMEOUT_S)
+    report["processes_s"] = seconds
+    print(f"train: the CLI and the example exited 0 in {seconds:.1f} s (run "
+          f"together)", flush=True)
+    launches = check_no_kernel_launched(modules, "training")
+    print(f"phase 9 (training): {time.perf_counter() - t_phase:.1f} s; "
+          f"training launched none of the nine kernels "
           f"{json.dumps(launches)}", flush=True)
     return report
 
@@ -1365,6 +1961,10 @@ def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
 
 
 def main() -> int:
+    # cuBLAS is deterministic with this workspace setting, which phase 9's
+    # resume check needs under torch.use_deterministic_algorithms; it must
+    # be in the environment before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2651,6 +3251,10 @@ def main() -> int:
     lm = lm_phase(np, torch, card)
     free()
 
+    # 9. training
+    train = train_phase(np, torch, card)
+    free()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = timings[name][0]
@@ -2679,6 +3283,7 @@ def main() -> int:
         if name == "ychg_diff":
             kernels[-1]["batch_entry"] = batch_entry
     print("lm: " + json.dumps(lm), flush=True)
+    print("train: " + json.dumps(train), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -22,22 +22,29 @@ disk write that corrupts the newest checkpoint — costs at most one
 checkpoint interval, never the whole bulk job. ``keep`` bounds disk usage.
 
 Trees: a small walker of its own stands in for ``jax.tree_util``. It
-descends dicts (keys in sorted order, as JAX flattens them), lists and
-tuples; ``None`` holds no leaf; anything else is a leaf: numpy arrays and
-scalars, Python numbers, torch tensors (saved via ``.cpu().numpy()``).
-Leaf paths are written as JAX's ``keystr`` writes them (``['runs']``,
-``[0]``).
+descends dicts (keys in sorted order, as JAX flattens them), lists,
+tuples and the optimiser's ``OptState`` (its fields ``step``, ``mu``,
+``nu`` in that order, as JAX flattens its registered dataclass); ``None``
+holds no leaf; anything else is a leaf: numpy arrays and scalars, Python
+numbers, torch tensors (saved via ``.cpu().numpy()``; bfloat16 as its two
+bytes a value, a ``V2`` array, with dtype ``bfloat16`` in the manifest,
+which is how NumPy writes the JAX package's bfloat16 arrays). Leaf paths
+are written as JAX's ``keystr`` writes them (``['runs']``, ``[0]``,
+``.mu``), so a training checkpoint of either package restores in the
+other.
 
 Restore: ``restore(step, like, device=None)`` rebuilds ``like``'s
 structure; each leaf takes ``like``'s dtype. A leaf whose ``like`` is a
 torch tensor comes back as a tensor (on ``device``, or where ``like``'s
 lies), every leaf does when ``device`` is given, and the rest come back as
 numpy arrays. The reference narrows int64 to int32 on restore (JAX runs with
-x64 off); the port keeps int64.
+x64 off); the port keeps int64. ``OptState.step`` is int32 in both
+packages and restores as int32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -48,6 +55,8 @@ from typing import Any, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.optim.adamw import OptState
 
 _SHARD_BYTES = 512 * 1024 * 1024
 
@@ -62,6 +71,10 @@ def _flatten_with_paths(tree: Any, path: str = "") -> Iterator[Tuple[str, Any]]:
     elif type(tree) in (list, tuple):
         for i, v in enumerate(tree):
             yield from _flatten_with_paths(v, f"{path}[{i}]")
+    elif isinstance(tree, OptState):
+        for field in dataclasses.fields(tree):
+            yield from _flatten_with_paths(getattr(tree, field.name),
+                                           f"{path}.{field.name}")
     else:
         yield path, tree
 
@@ -75,13 +88,35 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
         return {k: out[k] for k in like}
     if type(like) in (list, tuple):
         return type(like)(_unflatten(v, leaves) for v in like)
+    if isinstance(like, OptState):
+        return OptState(**{f.name: _unflatten(getattr(like, f.name), leaves)
+                           for f in dataclasses.fields(like)})
     return next(leaves)
 
 
 def _to_host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view("V2")
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == np.dtype("V2") else str(arr.dtype)
+
+
+def _to_tensor(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A restored array as a tensor of ``dtype``; bfloat16 from its two
+    bytes a value, or cast from another float."""
+    if dtype == torch.bfloat16:
+        if arr.dtype.itemsize == 2 and arr.dtype.kind in "Vu":
+            return torch.from_numpy(
+                np.ascontiguousarray(arr).view(np.int16)).view(dtype)
+        return torch.from_numpy(np.asarray(arr, np.float32)).to(dtype)
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    return torch.from_numpy(np.asarray(arr).astype(np_dtype))
 
 
 class Checkpointer:
@@ -133,7 +168,7 @@ class Checkpointer:
                 "file": f"shard_{shard_id:05d}.npz",
                 "key": key,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": _dtype_name(arr),
             }
             shard[key] = arr
             size += arr.nbytes
@@ -252,8 +287,7 @@ class Checkpointer:
                 files[meta["file"]] = np.load(os.path.join(d, meta["file"]))
             arr = files[meta["file"]][meta["key"]]
             if isinstance(leaf, torch.Tensor):
-                dtype = torch.empty(0, dtype=leaf.dtype).numpy().dtype
-                return torch.from_numpy(arr.astype(dtype)).to(
+                return _to_tensor(arr, leaf.dtype).to(
                     leaf.device if device is None else device)
             if hasattr(leaf, "dtype"):
                 arr = arr.astype(leaf.dtype)

@@ -12,9 +12,8 @@ Shapes (assigned): each cell names a step kind —
   train_4k / prefill_32k run train_step / prefill_step;
   decode_32k / long_500k run serve_step (1 new token, KV cache of seq_len).
 
-The port serves the "attn" and "mla" mixers with the "mlp" channel; the
-other families are configs only until ROADMAP 6b (``repro_torch.models``
-raises ``NotImplementedError`` for them).
+``repro_torch.models`` builds, serves and trains every mixer and
+channel.
 """
 
 from __future__ import annotations

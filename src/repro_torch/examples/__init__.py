@@ -1,5 +1,5 @@
-"""Twins of the JAX package's examples (the five yCHG ones and
-``serve_lm``), each run as ``python -m repro_torch.examples.<name>
+"""Twins of the JAX package's examples (the five yCHG ones, ``serve_lm``
+and ``train_lm``), each run as ``python -m repro_torch.examples.<name>
 [--device cpu]`` (the card unless ``--device cpu``). Importing one runs
 nothing."""
 

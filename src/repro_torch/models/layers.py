@@ -69,13 +69,15 @@ def einsum_f32(eq: str, a: Tensor, b: Tensor) -> Tensor:
 # trees
 
 
-def tree_map(fn: Callable, tree: Any) -> Any:
-    """Applies ``fn`` to every leaf of a nested-dict tree."""
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Applies ``fn`` to every leaf of a nested-dict tree (and to the
+    leaves at the same key paths of ``rest``, trees of its structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if tree is None:
         return None
-    return fn(tree)
+    return fn(tree, *rest)
 
 
 def tree_map_with_path(fn: Callable, tree: Any,
@@ -185,6 +187,16 @@ def layernorm(x: Tensor, scale: Tensor, bias: Optional[Tensor],
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * scale + (
         bias if bias is not None else 0)
+
+
+def groupnorm_heads(x: Tensor, scale: Tensor, bias: Tensor,
+                    eps: float) -> Tensor:
+    """Per-head groupnorm over the last dim; x: (..., H, K)."""
+    dt = x.dtype
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    return ((x32 - mu) * torch.rsqrt(var + eps)).to(dt) * scale + bias
 
 
 def init_norm(b: Builder, d: int, norm_type: str) -> dict:

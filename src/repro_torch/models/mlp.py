@@ -1,5 +1,5 @@
 """Channel mixers: the dense MLP (swiglu / gelu). The port's counterpart
-of ``repro.models.mlp``; the RWKV channel-mix waits for ROADMAP 6b."""
+of ``repro.models.mlp``; the RWKV channel-mix is in ``models.rwkv``."""
 
 from __future__ import annotations
 

@@ -11,16 +11,19 @@ config fields only.
 Three entry points per model:
   forward(...)                train / prefill (optionally returns the cache)
   decode_step(...)            one new token against the cache (serve_step)
-  loss_fn(...)                next-token CE, forward only (the backward
-                              comes with training, ROADMAP 6c)
+  loss_fn(...)                next-token CE + MoE aux loss (its backward
+                              is autograd's, ``train.step``)
 
 Parameter and cache trees exist in concrete form (drawn from a
 ``torch.Generator``, on its device) and abstract form (``meta`` tensors: a
 400B-parameter tree costs nothing to build).
 
-The "attn" and "mla" mixers and the "mlp" channel are ported; the "mamba"
-and "rwkv" mixers, the "moe" and "rwkv_ffn" channels and
-``weight_quant="int8"`` raise ``NotImplementedError`` (ROADMAP 6b).
+Every mixer ("attn", "mla", "mamba", "rwkv") and channel ("mlp", "moe",
+"rwkv_ffn") is ported, and ``weight_quant="int8"``: the layer stack is
+stored int8 with a per-group scale (``params["layers_scale"]``) and
+``decode_step`` dequantizes one group at a time. ``forward`` reads the
+int8 values as they are, without their scale, as the reference's does
+(ROADMAP Queue C 14).
 """
 
 from __future__ import annotations
@@ -31,6 +34,10 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import quant
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     Builder,
     P,
@@ -50,15 +57,6 @@ from repro_torch.models.mlp import init_mlp, mlp_apply
 Tensor = torch.Tensor
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP 6b)")
-
-
-def _check_quant(cfg: ModelConfig) -> None:
-    if cfg.weight_quant != "none":
-        raise _not_ported(f"weight_quant={cfg.weight_quant!r}")
-
-
 class _Stacked:
     """Builder proxy that prepends the (num_groups,) 'layers' axis."""
 
@@ -75,22 +73,25 @@ def _init_mixer(b, cfg: ModelConfig, spec: LayerSpec) -> dict:
         return attn.init_attn(b, cfg)
     if spec.mixer == "mla":
         return attn.init_mla(b, cfg)
-    if spec.mixer in ("mamba", "rwkv"):
-        raise _not_ported(f"the {spec.mixer!r} mixer")
+    if spec.mixer == "mamba":
+        return ssm_mod.init_mamba(b, cfg)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.init_rwkv_time(b, cfg)
     raise ValueError(spec.mixer)
 
 
 def _init_channel(b, cfg: ModelConfig, spec: LayerSpec) -> dict:
     if spec.channel == "mlp":
         return init_mlp(b, cfg)
-    if spec.channel in ("moe", "rwkv_ffn"):
-        raise _not_ported(f"the {spec.channel!r} channel")
+    if spec.channel == "moe":
+        return moe_mod.init_moe(b, cfg)
+    if spec.channel == "rwkv_ffn":
+        return rwkv_mod.init_rwkv_channel(b, cfg)
     raise ValueError(spec.channel)
 
 
 def _build(cfg: ModelConfig, generator: Optional[torch.Generator],
            abstract: bool):
-    _check_quant(cfg)
     b = Builder(generator, cfg.param_dtype, abstract=abstract)
     sb = _Stacked(b, cfg.num_groups)
     layers: Dict[str, Any] = {}
@@ -118,17 +119,25 @@ def _build(cfg: ModelConfig, generator: Optional[torch.Generator],
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> Any:
     """Parameters drawn from ``generator``, on its device."""
     params, _ = split_tree(_build(cfg, generator, abstract=False))
+    if cfg.weight_quant == "int8":
+        params["layers"], params["layers_scale"] = quant.quantize_layers(
+            params["layers"])
     return params
 
 
 def abstract_params(cfg: ModelConfig) -> Any:
     """The parameter tree on ``meta``: shapes and dtypes, no storage."""
     params, _ = split_tree(_build(cfg, None, abstract=True))
+    if cfg.weight_quant == "int8":
+        params["layers"], params["layers_scale"] = \
+            quant.abstract_quantized_layers(params["layers"])
     return params
 
 
 def param_logical_axes(cfg: ModelConfig) -> Any:
     _, axes = split_tree(_build(cfg, None, abstract=True))
+    if cfg.weight_quant == "int8":
+        axes["layers_scale"] = quant.scale_logical_axes(axes["layers"])
     return axes
 
 
@@ -160,8 +169,10 @@ def _apply_mixer(spec, p, x, cfg, shd, positions):
         return attn.attn_forward(p, x, cfg, shd, positions)
     if spec.mixer == "mla":
         return attn.mla_forward(p, x, cfg, shd, positions)
-    if spec.mixer in ("mamba", "rwkv"):
-        raise _not_ported(f"the {spec.mixer!r} mixer")
+    if spec.mixer == "mamba":
+        return ssm_mod.mamba_forward(p, x, cfg, shd)
+    if spec.mixer == "rwkv":
+        return rwkv_mod.rwkv_time_forward(p, x, cfg, shd)
     raise ValueError(spec.mixer)
 
 
@@ -169,8 +180,12 @@ def _apply_channel(spec, p, x, cfg, shd):
     """Returns (y, aux_loss, state)."""
     if spec.channel == "mlp":
         return mlp_apply(p, x, cfg, shd), 0.0, None
-    if spec.channel in ("moe", "rwkv_ffn"):
-        raise _not_ported(f"the {spec.channel!r} channel")
+    if spec.channel == "moe":
+        y, aux = moe_mod.moe_apply(p, x, cfg, shd)
+        return y, aux, None
+    if spec.channel == "rwkv_ffn":
+        y, st = rwkv_mod.rwkv_channel_forward(p, x, cfg, shd)
+        return y, 0.0, st
     raise ValueError(spec.channel)
 
 
@@ -235,7 +250,6 @@ def forward(
     return_cache: bool = False,
 ) -> Tuple[Tensor, Tensor, Any]:
     """tokens: (B,S) int32 -> (logits (B,S,V), aux_loss, cache|None)."""
-    _check_quant(cfg)
     shd = shd or Sharder()
     b_, s = tokens.shape
     x = _embed(params, cfg, tokens)
@@ -265,21 +279,40 @@ def forward(
 # decode
 
 
+def _write_state(cache: dict, state: dict) -> None:
+    """A recurrent layer's new state into its cache entry, in place."""
+    for name, value in state.items():
+        cache[name].copy_(value)
+
+
 def _decode_mixer(spec, p, h, cfg, shd, cache, cur_index):
+    """The mixer's output for the new token; its cache entry is written in
+    place."""
     if spec.mixer == "attn":
-        return attn.attn_decode(p, h, cfg, shd, cache, cur_index)
+        return attn.attn_decode(p, h, cfg, shd, cache, cur_index)[0]
     if spec.mixer == "mla":
-        return attn.mla_decode(p, h, cfg, shd, cache, cur_index)
-    if spec.mixer in ("mamba", "rwkv"):
-        raise _not_ported(f"the {spec.mixer!r} mixer")
-    raise ValueError(spec.mixer)
+        return attn.mla_decode(p, h, cfg, shd, cache, cur_index)[0]
+    if spec.mixer == "mamba":
+        out, state = ssm_mod.mamba_decode(p, h, cfg, shd, cache)
+    elif spec.mixer == "rwkv":
+        out, state = rwkv_mod.rwkv_time_decode(p, h, cfg, shd, cache)
+    else:
+        raise ValueError(spec.mixer)
+    _write_state(cache, state)
+    return out
 
 
 def _decode_channel(spec, p, x, cfg, shd, state):
+    """The channel's output for the new token; an rwkv_ffn's shift is
+    written into ``state`` in place."""
     if spec.channel == "mlp":
-        return mlp_apply(p, x, cfg, shd), 0.0, None
-    if spec.channel in ("moe", "rwkv_ffn"):
-        raise _not_ported(f"the {spec.channel!r} channel")
+        return mlp_apply(p, x, cfg, shd)
+    if spec.channel == "moe":
+        return moe_mod.moe_apply(p, x, cfg, shd)[0]
+    if spec.channel == "rwkv_ffn":
+        y, new = rwkv_mod.rwkv_channel_decode(p, x, cfg, shd, state)
+        _write_state(state, new)
+        return y
     raise ValueError(spec.channel)
 
 
@@ -290,17 +323,17 @@ def _decode_group_body(cfg, shd, cur_index, x, group_params, cache):
         gp = group_params[f"p{k}"]
         c = cache[f"p{k}"]
         h = apply_norm(gp["norm1"], x, cfg.norm_type, cfg.norm_eps)
-        mix_out, _ = _decode_mixer(spec, gp["mixer"], h, cfg, shd,
-                                   c["mixer"], cur_index)
+        mix_out = _decode_mixer(spec, gp["mixer"], h, cfg, shd,
+                                c["mixer"], cur_index)
         if cfg.parallel_block:
-            ch_out, _, _ = _decode_channel(spec, gp["channel"], h, cfg, shd,
-                                           c["channel"])
+            ch_out = _decode_channel(spec, gp["channel"], h, cfg, shd,
+                                     c["channel"])
             x = x + mix_out + ch_out
         else:
             x = x + mix_out
             h2 = apply_norm(gp["norm2"], x, cfg.norm_type, cfg.norm_eps)
-            ch_out, _, _ = _decode_channel(spec, gp["channel"], h2, cfg,
-                                           shd, c["channel"])
+            ch_out = _decode_channel(spec, gp["channel"], h2, cfg, shd,
+                                     c["channel"])
             x = x + ch_out
     return x
 
@@ -315,8 +348,9 @@ def decode_step(
 ) -> Tuple[Tensor, Any]:
     """tokens: (B,1) -> (logits (B,V), cache). ``cur_index`` is the
     position the new token takes; its cache entries are written into
-    ``cache`` in place, and the same tree is returned."""
-    _check_quant(cfg)
+    ``cache`` in place, and the same tree is returned. With int8 weights
+    each group is dequantized to the activation dtype just before it
+    runs."""
     shd = shd or Sharder()
     cur_index = int(cur_index)
     x = _embed(params, cfg, tokens)
@@ -325,9 +359,13 @@ def decode_step(
                          device=x.device)
         x = x + sinusoidal_pos(pos, cfg.d_model).to(x.dtype)
     x = shd(x, ("act_batch", None, "act_embed"))
+    act = torch_dtype(cfg.activation_dtype)
     for i in range(cfg.num_groups):
-        x = _decode_group_body(cfg, shd, cur_index, x,
-                               _group(params["layers"], i), _group(cache, i))
+        gp = _group(params["layers"], i)
+        if cfg.weight_quant == "int8":
+            gp = quant.dequantize_group(
+                gp, _group(params["layers_scale"], i), act)
+        x = _decode_group_body(cfg, shd, cur_index, x, gp, _group(cache, i))
     return _logits(params, cfg, x)[:, 0, :], cache
 
 
@@ -354,13 +392,30 @@ def _cache_entry(cfg: ModelConfig, spec: LayerSpec, batch: int, seq: int,
             "k_rope": mk((g, batch, seq, cfg.qk_rope_dim), dt,
                          ("layers", "act_batch", "act_kv_seq", None)),
         }
-    elif spec.mixer in ("mamba", "rwkv"):
-        raise _not_ported(f"the {spec.mixer!r} mixer's cache")
+    elif spec.mixer == "mamba":
+        di = ssm_mod.d_inner_of(cfg)
+        mixer = {
+            "h": mk((g, batch, di, cfg.ssm_state_dim), torch.float32,
+                    ("layers", "act_batch", "act_mlp", None)),
+            "conv": mk((g, batch, cfg.ssm_conv_dim - 1, di), dt,
+                       ("layers", "act_batch", None, "act_mlp")),
+        }
+    elif spec.mixer == "rwkv":
+        h = rwkv_mod.num_heads_of(cfg)
+        k = cfg.rwkv_head_dim
+        mixer = {
+            "wkv": mk((g, batch, h, k, k), torch.float32,
+                      ("layers", "act_batch", "act_heads", None, None)),
+            "shift": mk((g, batch, cfg.d_model), dt,
+                        ("layers", "act_batch", "act_embed")),
+        }
     else:
         raise ValueError(spec.mixer)
+    channel = None
     if spec.channel == "rwkv_ffn":
-        raise _not_ported("the 'rwkv_ffn' channel's cache")
-    return {"mixer": mixer, "channel": None}
+        channel = {"shift": mk((g, batch, cfg.d_model), dt,
+                               ("layers", "act_batch", "act_embed"))}
+    return {"mixer": mixer, "channel": channel}
 
 
 def _cache_tree(cfg: ModelConfig, batch: int, seq: int,

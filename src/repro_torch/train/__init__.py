@@ -1,6 +1,9 @@
-"""Step builders for serving: the prefill and serve steps. Training
-(``make_train_step``, ``TrainLoop``) is not ported yet (ROADMAP 6c)."""
+from repro_torch.train.step import (
+    make_prefill_step,
+    make_serve_step,
+    make_train_step,
+)
+from repro_torch.train.loop import TrainLoop, TrainLoopConfig
 
-from repro_torch.train.step import make_prefill_step, make_serve_step
-
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
+           "TrainLoop", "TrainLoopConfig"]

@@ -1,17 +1,112 @@
-"""Step builders: prefill_step (forward + cache materialisation) and
-serve_step (one token against the cache), the two that
-``repro_torch.serve`` runs. The port's counterpart of part of
-``repro.train.step``; ``make_train_step`` (grads, AdamW, microbatch
-accumulation) waits for training, ROADMAP 6c.
+"""Step builders: train_step (gradients, global-norm clipping, the
+warmup-cosine schedule and AdamW, optionally over microbatches),
+prefill_step (forward + cache materialisation) and serve_step (one token
+against the cache). The port's counterpart of ``repro.train.step``.
+
+The gradient is autograd's: every parameter leaf is detached, set to
+require grad, and ``torch.autograd.grad`` of ``loss_fn`` is taken over
+those leaves, so the caller's tree is never touched and the step returns
+new parameter and optimiser trees (see ``optim.adamw``). Gradient
+accumulation is a loop over ``grad_accum`` microbatches that adds float32
+gradients, then divides the loss and the gradients, as the reference's
+``lax.scan`` does.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+import torch
+
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import decode_step, forward
-from repro_torch.models.layers import Sharder
+from repro_torch.models import decode_step, forward, loss_fn
+from repro_torch.models.layers import Sharder, tree_leaves_with_path, tree_map
+from repro_torch.optim import adamw_update, clip_by_global_norm, warmup_cosine
+
+
+def _as_tensor(x, device: torch.device):
+    return None if x is None else torch.as_tensor(x).to(device)
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    mesh=None,
+    rules=None,
+    *,
+    grad_accum: int = 1,
+    peak_lr: float = 3e-4,
+    warmup_steps: int = 100,
+    total_steps: int = 10_000,
+    max_grad_norm: float = 1.0,
+    weight_decay: float = 0.1,
+) -> Callable:
+    """Returns train_step(params, opt_state, batch) -> (params', opt_state',
+    metrics). ``batch`` holds ``tokens`` and ``labels`` (B, S) and
+    optionally ``frontend_embeds``, as tensors or NumPy arrays; they are
+    moved to the parameters' device. The metrics are 0-dim tensors:
+    ``loss``, ``ce``, ``aux``, ``grad_norm``, ``lr``."""
+    shd = Sharder(mesh, rules)
+
+    def value_and_grad(params, tokens, labels, frontend_embeds):
+        leaves = []
+        for path, t in tree_leaves_with_path(params):
+            if not t.dtype.is_floating_point:
+                raise ValueError(f"{'/'.join(path)} is {t.dtype}: training "
+                                 f"needs floating-point parameters")
+            leaves.append(t.detach().requires_grad_(True))
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(live, cfg, tokens, labels, shd,
+                                    frontend_embeds)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        it = iter(torch.zeros_like(leaf) if g is None else g
+                  for g, leaf in zip(grads, leaves))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                tree_map(lambda _: next(it), params))
+
+    def train_step(params, opt_state, batch: Dict[str, Any]):
+        device = opt_state.step.device
+        tokens = _as_tensor(batch["tokens"], device)
+        labels = _as_tensor(batch["labels"], device)
+        fe = _as_tensor(batch.get("frontend_embeds"), device)
+
+        if grad_accum == 1:
+            loss, metrics, grads = value_and_grad(params, tokens, labels, fe)
+        else:
+            b = tokens.shape[0]
+            assert b % grad_accum == 0, (b, grad_accum)
+            mb = b // grad_accum
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32, device=device)
+            for i in range(grad_accum):
+                part = slice(i * mb, (i + 1) * mb)
+                l_i, _, g_i = value_and_grad(params, tokens[part],
+                                             labels[part], None)
+                grads = tree_map(torch.add, grads, g_i)
+                loss = loss + l_i
+            loss = loss / grad_accum
+            grads = tree_map(lambda g: g / grad_accum, grads)
+            metrics = {"ce": loss,
+                       "aux": torch.zeros((), dtype=torch.float32,
+                                          device=device)}
+
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        lr = warmup_cosine(opt_state.step, peak_lr=peak_lr,
+                           warmup_steps=warmup_steps, total_steps=total_steps)
+        params, opt_state = adamw_update(params, grads, opt_state, lr=lr,
+                                         weight_decay=weight_decay)
+        out_metrics = {
+            "loss": loss,
+            "ce": metrics["ce"],
+            "aux": metrics["aux"],
+            "grad_norm": gnorm,
+            "lr": lr,
+        }
+        return params, opt_state, out_metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, mesh=None, rules=None) -> Callable:

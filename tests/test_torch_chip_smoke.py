@@ -14,7 +14,12 @@ Phase 7 lowers and runs its cells on the CPU (the memory probes answer 0,
 and the peak is not measured there), dry-runs the workload with the
 ``torch`` backend, and runs the five examples as processes with
 ``--device cpu``. Phase 8 runs the LM checks on the reduced configs (the
-card and the CPU both the CPU) and the LM CLI and example with ``--device
+card and the CPU both the CPU): qwen2, MLA, RWKV, MoE, the hybrid, int8
+weights and the two serving legs, and the LM CLI and example with
+``--device cpu``. Phase 9 trains the reduced qwen2 (one step against
+itself, gradient accumulation, ``TrainLoop`` with its checkpoint and
+resume, on a dataset of 4 patterns, which a 256-token vocabulary can
+learn in 20 steps) and runs the train CLI and example with ``--device
 cpu``.
 """
 
@@ -32,8 +37,14 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 
 REHEARSAL = textwrap.dedent("""
-    import sys, time
+    import os, sys, time
     import torch
+
+    # the processes the script starts run side by side on the CPU here, and
+    # beside the suite's other workers: two threads each, this one too, so
+    # that their thread pools do not fight for the cores
+    os.environ["OMP_NUM_THREADS"] = "2"
+    torch.set_num_threads(2)
 
     sys.path[:0] = [sys.argv[1], sys.argv[1] + "/src"]
     torch.cuda.is_available = lambda: True
@@ -87,6 +98,7 @@ REHEARSAL = textwrap.dedent("""
     cs.LM_SMOKE = True              # phase 8 on the reduced configs
     cs.LM_CHECK_PROMPT, cs.LM_CHECK_NEW = 16, 8
     cs.LM_PROMPT, cs.LM_NEW = 16, 8
+    cs.TRAIN_PATTERNS, cs.TRAIN_SEQ = 4, 64   # phase 9 on the reduced qwen2
     import repro_torch.sharding as shard
     every_device = shard.make_batch_mesh
     shard.make_batch_mesh = lambda axis_name="data", devices=None: (
@@ -283,18 +295,41 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert ("op smoke: launch.serve --op-smoke at 32^2 passed on the card"
             in out.stdout)
     assert "op smoke: /v1/pipeline denoise+ychg == the stages" in out.stdout
-    for label in ("qwen2-0.5b", "minicpm3-4b x2"):
+    for label in ("qwen2-0.5b", "minicpm3-4b x2", "rwkv6-3b x2",
+                  "phi3.5-moe-42b-a6.6b x2", "jamba-v0.1-52b x8",
+                  "jamba-v0.1-52b x8 bfloat16", "qwen2-0.5b int8"):
         assert f"lm [{label}]: " in out.stdout, label
-    assert "lm [qwen2-0.5b bfloat16]: ServeEngine.generate batch 8" in (
-        out.stdout)
+    for arch in ("qwen2-0.5b", "rwkv6-3b"):
+        assert (f"lm [{arch} bfloat16]: ServeEngine.generate batch 8"
+                in out.stdout), arch
+    assert "experts equal in 2 MoE layers" in out.stdout
+    assert "(dropless)" in out.stdout
     for name in ("serve --workload lm", "examples.serve_lm"):
         assert f"lm: {name} exit 0" in out.stdout, name
     assert "the LM path launched none of the nine kernels" in out.stdout
     lm = json.loads(next(line for line in lines
                          if line.startswith("lm: {"))[4:])
-    assert lm["qwen2-0.5b bfloat16"]["decode_bound_ms"] > 0
-    for label in ("qwen2-0.5b", "minicpm3-4b x2"):
+    for arch in ("qwen2-0.5b", "rwkv6-3b"):
+        assert lm[f"{arch} bfloat16"]["decode_bound_ms"] > 0, arch
+    for label in ("qwen2-0.5b", "minicpm3-4b x2", "rwkv6-3b x2",
+                  "phi3.5-moe-42b-a6.6b x2"):
         assert lm[label]["forward_max_abs"] <= lm[label]["bound"], label
+    assert lm["phi3.5-moe-42b-a6.6b x2"]["moe_layers"] == 2
+    for label in ("jamba-v0.1-52b x8", "qwen2-0.5b int8"):
+        assert lm[label]["decode_max_abs"] <= lm[label]["bound"], label
+    assert lm["qwen2-0.5b int8"]["int8_params"] > 0
+    assert "train [qwen2-0.5b x2 float32]: " in out.stdout
+    assert "TrainLoop batch 8 x 64, 20 steps" in out.stdout
+    for name in ("launch.train", "examples.train_lm"):
+        assert f"train: {name} exit 0" in out.stdout, name
+    assert "training launched none of the nine kernels" in out.stdout
+    train = json.loads(next(line for line in lines
+                            if line.startswith("train: {"))[7:])
+    assert train["loop"]["resume_bit_equal"]
+    assert train["loop"]["losses"][-1] < train["loop"]["losses"][0]
+    assert len(train["loop"]["step_ms"]) == 20
+    assert (train["float32"]["param_max_abs"]
+            <= train["float32"]["param_bound"])
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]

@@ -41,16 +41,6 @@ NOT_PORTED = {
     "repro.sharding": ({"DECODE_RULES", "TRAIN_RULES", "make_rules",
                         "param_shardings", "spec_for", "tree_shardings"},
                        "Queue A 6e"),
-    "repro.launch.train": (None, "Queue A 6c"),
-    "repro.train.loop": (None, "Queue A 6c"),
-    "repro.optim": (None, "Queue A 6c"),
-    "repro.optim.adamw": (None, "Queue A 6c"),
-    "repro.train": ({"make_train_step", "TrainLoop", "TrainLoopConfig"},
-                    "Queue A 6c"),
-    "repro.models.moe": (None, "Queue A 6b"),
-    "repro.models.ssm": (None, "Queue A 6b"),
-    "repro.models.rwkv": (None, "Queue A 6b"),
-    "repro.models.quant": (None, "Queue A 6b"),
     # jax.jit of core.ychg.analyze: no counterpart (repro_torch.core says so)
     "repro.core": ({"analyze_jit"}, "none: a jax.jit wrapper"),
 }

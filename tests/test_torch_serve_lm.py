@@ -46,6 +46,17 @@ SUBSTRATES = dict(name="t", family="dense", num_layers=2, d_model=32,
 PROMPTS = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads while this module runs: its models are small,
+    and the suite's other workers share the CPU (eight threads a worker
+    spin against each other)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
 def _engines(jc, tc, max_len):
     jp = JM.init_params(jc, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc, "cpu")
@@ -53,12 +64,15 @@ def _engines(jc, tc, max_len):
             ServeEngine(tc, tp, max_len=max_len, device="cpu"))
 
 
-@pytest.mark.parametrize("arch", [None, "minicpm3-4b", "musicgen-medium"])
+@pytest.mark.parametrize("arch", [
+    None, "minicpm3-4b", "musicgen-medium", "rwkv6-3b", "jamba-v0.1-52b",
+    "phi3.5-moe-42b-a6.6b", "llama4-maverick-400b-a17b"])
 def test_greedy_tokens_equal_jax(arch):
     """Greedy tokens exactly equal to JAX's ServeEngine: the substrates
-    test's model, and the MLA and the LayerNorm/GELU/sinusoidal smoke
-    configs (prompts past ``attn_chunk``, so prefill runs the chunked
-    core)."""
+    test's model, and the MLA, the LayerNorm/GELU/sinusoidal, the RWKV,
+    the hybrid and the two MoE smoke configs (prompts past
+    ``attn_chunk``, so prefill runs the chunked core; the recurrent
+    families prefill their state and decode from it)."""
     if arch is None:
         jc, tc = JModelConfig(**SUBSTRATES), ModelConfig(**SUBSTRATES)
         prompts, new, max_len = PROMPTS, 6, 32
@@ -160,6 +174,29 @@ def test_pad_cache_grows_the_sequence_axis():
             assert leaf.shape[2] == 12, path
             small = dict(tree_leaves_with_path(cache))[path]
             assert torch.equal(leaf[:, :, :4], small) and not leaf[:, :, 4:].any()
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-v0.1-52b"])
+def test_pad_cache_passes_state_entries_through(arch):
+    """The recurrent state (Mamba's ``h`` and ``conv``, RWKV's ``wkv`` and
+    both ``shift`` entries) has no sequence axis: ``_pad_cache`` hands it
+    on untouched, the same tensors, while attention's k/v grow."""
+    tc = smoke_config(arch)
+    params = TM.init_params(tc, torch.Generator("cpu").manual_seed(0))
+    eng = ServeEngine(tc, params, 12, device="cpu")
+    with torch.inference_mode():
+        _, cache = eng._prefill(params, torch.from_numpy(PROMPTS))
+        padded = eng._pad_cache(cache)
+    before = dict(tree_leaves_with_path(cache))
+    names = set()
+    for path, leaf in tree_leaves_with_path(padded):
+        names.add(path[-1])
+        if path[-1] in ("k", "v"):
+            assert leaf.shape[2] == 12, path
+        else:
+            assert leaf is before[path], path
+    assert names >= ({"wkv", "shift"} if arch == "rwkv6-3b"
+                     else {"h", "conv", "k", "v"})
 
 
 def test_serve_lm_cli_subprocess():
