@@ -201,14 +201,39 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      losses bit for bit (``torch.use_deterministic_algorithms``); last
      ``python -m repro_torch.launch.train --arch qwen2-0.5b --steps 20
      --batch 8 --seq 256`` and ``python -m repro_torch.examples.train_lm
-     --tiny --steps 20``, run together, each exiting 0.
+     --tiny --steps 20``, run together, each exiting 0;
+ 10. sharding and the LM dry run, every launch counter set to 0 just
+     before (none of the nine kernels may launch), TF32 off: every LM
+     cell of ``launch.dryrun`` (each architecture x shape x single/multi
+     mesh) reckoned ``ok`` with ``torch.cuda.memory_allocated()``
+     unchanged, the cells whose per-device argument bytes exceed the
+     card's memory printed; a one-rank NCCL process group (a
+     ``FileStore``) and ``make_host_mesh()``'s (1, 1) ("data", "model")
+     mesh: qwen2-0.5b at full width and two layers in float32, the
+     meshed forward (train rules) and decode over 64 positions (decode
+     rules) against the unmeshed ones within phase 8's bound; at full
+     depth in bfloat16 ``ServeEngine(mesh=...)`` against the unmeshed
+     engine, batch 8, prompt 128, 32 new tokens, greedy tokens equal,
+     decode ms a step of each (CUDA events, median), the reckoned
+     per-device parameter bytes equal to the placed shards'; phi3.5-moe
+     at full width and two layers with ``moe_impl="alltoall"`` under the
+     mesh against unmeshed (model = 1: the dispatch path, as in the
+     reference); one meshed train step of qwen2-0.5b x2 against the
+     unmeshed one within phase 9's bound; then, on the host's CPU alone,
+     the gloo rehearsal that ``tests/test_torch_sharding_dist.py`` runs
+     too (``gloo_rank``: four processes, a (2, 2) mesh, small float32
+     configs): dense and MLA forward and greedy tokens against unmeshed,
+     the MoE all-to-all against dispatch (its cross-entropy's gradient
+     leaf by leaf), the dense train step, a checkpoint restored onto (4, 1) and
+     (2, 2), and the collectives each step issued beside the dry run's
+     reckoning of them.
 
-It prints phase 8's numbers as one ``lm:`` JSON line and phase 9's as one
-``train:`` line, the kernels' JSON line, the card line, and last
-``{"ok": true, "device": {...}}``. llama4-maverick-400b-a17b has no leg:
-at full width and two layers it is 37.1 GB in bfloat16 and 74.2 GB in
-float32, so no float32 card-against-CPU check fits; the CPU tests hold it
-at its smoke size.
+It prints phase 8's numbers as one ``lm:`` JSON line, phase 9's as one
+``train:`` line and phase 10's as one ``shard:`` line, the kernels' JSON
+line, the card line, and last ``{"ok": true, "device": {...}}``.
+llama4-maverick-400b-a17b has no leg: at full width and two layers it is
+37.1 GB in bfloat16 and 74.2 GB in float32, so no float32 card-against-CPU
+check fits; the CPU tests hold it at its smoke size.
 """
 
 from __future__ import annotations
@@ -1478,10 +1503,14 @@ TRAIN_CLI = ("--arch", TRAIN_ARCH, "--steps", "20", "--batch", "8", "--seq",
 
 
 def tree_max_abs(a, b) -> float:
-    from repro_torch.models.layers import tree_leaves_with_path
+    """Max abs difference of two trees, DTensor leaves taken whole."""
+    from repro_torch.models.layers import is_dtensor, tree_leaves_with_path
+
+    def whole(t):
+        return (t.full_tensor() if is_dtensor(t) else t).float().cpu()
 
     other = dict(tree_leaves_with_path(b))
-    return max(float((t.float().cpu() - other[path].float().cpu()).abs().max())
+    return max(float((whole(t) - whole(other[path])).abs().max())
                for path, t in tree_leaves_with_path(a))
 
 
@@ -1705,6 +1734,836 @@ def train_phase(np, torch, card: str) -> dict:
           f"training launched none of the nine kernels "
           f"{json.dumps(launches)}", flush=True)
     return report
+
+
+# phase 10: sharding and the LM dry run. Every LM cell reckoned (nothing
+# allocated); then a one-rank process group (nccl on the card; the
+# rehearsal sets gloo) and its (1, 1) ("data", "model") DeviceMesh:
+# qwen2-0.5b at full width and two layers in float32 (TF32 off), meshed
+# forward and decode against unmeshed on the card; at full depth in
+# bfloat16, ServeEngine(mesh=...) against the unmeshed engine (greedy
+# tokens, decode ms a step); phi3.5-moe at full width and two layers under
+# the mesh (dispatch: model = 1); one meshed train step; the reckoned
+# per-device parameter bytes against the placed shards. The float32 bound
+# is phase 8's (LM_REL_BOUND of max|logit|), the train step's phase 9's.
+SHARD_BACKEND = "nccl"
+SHARD_CHECK_BATCH, SHARD_CHECK_PROMPT = 2, 64
+SHARD_SERVE_NEW = 32
+
+# phase 10's gloo rehearsal, which tests/test_torch_sharding_dist.py runs
+# too: GLOO_PROCS processes on the host's CPU, one torch thread each, a
+# (GLOO_PROCS // GLOO_MODEL, GLOO_MODEL) ("data", "model") mesh, and small
+# float32 configs: a dense and an MLA model (forward, greedy tokens; the
+# dense one's train step and checkpoint) and a MoE one on the all-to-all
+# path (against dispatch, its gradient leaf by leaf), and
+# the collectives each step issues (``collective_log``)
+GLOO_PROCS, GLOO_MODEL = 4, 2
+GLOO_TIMEOUT_S = 300
+GLOO_BATCH, GLOO_SEQ, GLOO_PROMPT, GLOO_NEW, GLOO_MAX_LEN = 4, 16, 6, 8, 24
+GLOO_BASE = dict(num_layers=2, d_model=32, num_heads=4, num_kv_heads=2,
+                 d_ff=64, vocab_size=96, activation_dtype="float32",
+                 param_dtype="float32", remat="none", attn_chunk=8)
+GLOO_MLA = dict(q_lora_rank=16, kv_lora_rank=8, qk_rope_dim=4,
+                qk_nope_dim=8, v_head_dim=8)
+# label -> (config fields, the layer's mixer)
+GLOO_MODELS = {"dense": (dict(family="dense"), "attn"),
+               "mla": (dict(family="dense", **GLOO_MLA), "mla")}
+GLOO_MOE = dict(family="moe", num_layers=2, d_model=32, num_heads=4,
+                num_kv_heads=2, d_ff=64, vocab_size=97, num_experts=4,
+                experts_per_token=2, moe_capacity_factor=16.0,
+                activation_dtype="float32", param_dtype="float32",
+                remat="none", attn_chunk=64, pattern=(("attn", "moe"),))
+GLOO_FWD_ATOL, GLOO_FWD_RTOL = 2e-5, 1e-5    # the float32 bar
+GLOO_A2A_BOUND = 1e-3          # the reference's all-to-all test's bar
+GLOO_GRAD_REL = 1e-5           # of each leaf's gradient norm
+# the steps whose collectives are logged: decode of each model, the train
+# cell's forward (the loss without gradients) and the whole train step
+GLOO_COLLECTIVE_CASES = (("decode", "dense"), ("decode", "mla"),
+                         ("decode", "moe"), ("decode", "moe-dispatch"),
+                         ("forward", "dense"), ("forward", "moe"),
+                         ("train", "dense"), ("train", "moe"))
+
+
+def gloo_model_config(label: str):
+    """A GLOO_MODELS entry (or "moe", "moe-dispatch") as a ModelConfig of
+    the port."""
+    from repro_torch.configs.base import LayerSpec, ModelConfig
+
+    if label.startswith("moe"):
+        kw = dict(GLOO_MOE)
+        kw["moe_impl"] = "dispatch" if label == "moe-dispatch" \
+            else "alltoall"
+    else:
+        fields, mixer = GLOO_MODELS[label]
+        kw = {**GLOO_BASE, **fields, "pattern": ((mixer, "mlp"),)}
+    pattern = kw.pop("pattern")
+    return ModelConfig(name="t-" + label, layer_pattern=tuple(
+        LayerSpec(*p) for p in pattern), **kw)
+
+
+def collective_log(torch):
+    """A dispatch mode that logs every collective issued under it, as
+    (kind, result bytes, group size, in backward): DTensor's own (it lets
+    DTensor run first, as ``CommDebugMode`` does) and the explicit ones.
+    Scatters and broadcasts (placing a step's inputs) are logged as kind
+    "placement"."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    def size(group) -> int:
+        if isinstance(group, str):
+            return _resolve_process_group(group).size()
+        return dist.ProcessGroup.unbox(group).size()
+
+    def nbytes(t) -> int:
+        return t.numel() * t.element_size()
+
+    # op -> (kind, the input tensor, the group, how the result's bytes
+    # follow from the input's and the group's size)
+    same = lambda b, g: b        # noqa: E731
+    ops = {
+        "_c10d_functional.all_reduce": (
+            "all-reduce", lambda a: a[0], lambda a: a[2], same),
+        "_c10d_functional.all_gather_into_tensor": (
+            "all-gather", lambda a: a[0], lambda a: a[2],
+            lambda b, g: b * g),
+        "_c10d_functional.reduce_scatter_tensor": (
+            "reduce-scatter", lambda a: a[0], lambda a: a[3],
+            lambda b, g: b // g),
+        "_c10d_functional.all_to_all_single": (
+            "all-to-all", lambda a: a[0], lambda a: a[3], same),
+        "c10d.allreduce_": (
+            "all-reduce", lambda a: a[0][0], lambda a: a[1], same),
+        "c10d.alltoall_base_": (
+            "all-to-all", lambda a: a[1], lambda a: a[2], same),
+        "c10d._allgather_base_": (
+            "all-gather", lambda a: a[1], lambda a: a[2],
+            lambda b, g: b * g),
+        "c10d.allgather_": (
+            "all-gather", lambda a: a[1][0], lambda a: a[2],
+            lambda b, g: b * g),
+        "c10d.scatter_": ("placement", None, None, None),
+        "c10d.broadcast_": ("placement", None, None, None),
+    }
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t is DTensor for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            entry = ops.get(str(func._overloadpacket))
+            if entry is not None:
+                kind, tensor, group, result = entry
+                if kind == "placement":
+                    self.ops.append((kind, 0, 0, False))
+                else:
+                    g = size(group(args))
+                    self.ops.append((
+                        kind, result(nbytes(tensor(args)), g)
+                        if tensor(args).dim() else 0, g,
+                        torch._C._current_autograd_node() is not None))
+            return out
+
+    return Log()
+
+
+def collective_totals(ops, ring_bytes) -> dict:
+    """A collective log's ops and ring bytes by kind, leaving out input
+    placement and 0-dim collectives (metrics, the aux loss, the gradient
+    norm): (counts, bytes) of the whole and of the forward."""
+    out = {}
+    for part in ("all", "forward"):
+        counts, moved = {}, {}
+        for kind, result, g, backward in ops:
+            if kind == "placement" or not result or (
+                    part == "forward" and backward):
+                continue
+            counts[kind] = counts.get(kind, 0) + 1
+            moved[kind] = moved.get(kind, 0.0) + ring_bytes(kind, result, g)
+        out[part] = {"counts": counts, "bytes": moved}
+    return out
+
+
+def gloo_write_inputs(np, out_dir: str, models: dict, ckpt_save) -> dict:
+    """The rehearsal's inputs: ``models`` (a GLOO_MODELS label -> its
+    parameters as a NumPy tree), the tokens and prompts drawn here, and
+    ``ckpt_save(path)``, which writes the dense model's parameters as the
+    checkpoint at step 1 under ``path``. Returns the inputs."""
+    import pickle
+
+    rng = np.random.default_rng(0)
+    inputs = {
+        "models": models,
+        "tokens": rng.integers(0, GLOO_BASE["vocab_size"],
+                               (GLOO_BATCH, GLOO_SEQ)).astype(np.int32),
+        "prompts": rng.integers(0, GLOO_BASE["vocab_size"],
+                                (GLOO_BATCH, GLOO_PROMPT)).astype(np.int32),
+    }
+    with open(os.path.join(out_dir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    ckpt_save(os.path.join(out_dir, "ckpt"))
+    return inputs
+
+
+def gloo_start(out_dir: str) -> "subprocess.Popen":
+    """Start the rehearsal's processes on ``out_dir``'s inputs."""
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            f"import chip_smoke; chip_smoke.gloo_spawn({out_dir!r})")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=out_dir)
+
+
+def gloo_results(proc, out_dir: str, timeout: float) -> dict:
+    """Wait for the rehearsal (killing it at ``timeout``), raise on a
+    failure, and return what rank 0 measured."""
+    import pickle
+
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0,
+          f"the gloo rehearsal exited {proc.returncode}: {err[-4000:]}")
+    with open(os.path.join(out_dir, "results.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def gloo_spawn(out_dir: str) -> None:
+    import torch.multiprocessing as mp
+
+    mp.spawn(gloo_rank, args=(out_dir,), nprocs=GLOO_PROCS)
+
+
+def gloo_rank(rank: int, out_dir: str) -> None:
+    """One rank of the rehearsal; rank 0 writes ``results.pkl``."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(out_dir, "pg"),
+        rank=rank, world_size=GLOO_PROCS)
+    try:
+        out = gloo_measure(np, torch, out_dir)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        with open(os.path.join(out_dir, "results.pkl"), "wb") as f:
+            pickle.dump(out, f)
+
+
+def gloo_measure(np, torch, out_dir: str) -> dict:
+    import pickle
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import ring_bytes
+    from repro_torch.models import (
+        abstract_cache,
+        cache_logical_axes,
+        forward,
+        init_cache,
+        init_params,
+        loss_fn,
+        moe,
+    )
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.layers import (
+        Sharder,
+        meshed,
+        tree_leaves_with_path,
+        tree_map,
+    )
+    from repro_torch.optim import adamw_init
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.sharding import (
+        make_rules,
+        param_shardings,
+        place,
+        placements,
+        tree_shardings,
+    )
+    from repro_torch.train import make_serve_step, make_train_step
+    from repro_torch.train.step import place_input
+
+    with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+        inputs = pickle.load(f)
+    mesh = make_host_mesh(model=GLOO_MODEL, device="cpu")
+    mesh41 = make_host_mesh(model=1, device="cpu")
+    train = make_rules("train")
+    tokens = torch.from_numpy(inputs["tokens"])
+    labels = torch.roll(tokens, -1, 1)
+    batch = {"tokens": tokens, "labels": labels}
+    out = {"mesh": tuple(mesh.shape), "mesh41": tuple(mesh41.shape),
+           "torch": torch.__version__}
+    models = {label: params_from_jax(tree, gloo_model_config(label), "cpu")
+              for label, tree in inputs["models"].items()}
+
+    def full(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    def max_abs(a, b) -> float:
+        other = dict(tree_leaves_with_path(b))
+        return max(float((full(t) - full(other[k])).abs().max())
+                   for k, t in tree_leaves_with_path(a))
+
+    def meshed_forward(cfg, params, m, toks):
+        shd = Sharder(m, train)
+        with torch.no_grad(), meshed(shd):
+            return full(forward(params, cfg, toks, shd)[0])
+
+    # each model's meshed forward, and the unmeshed one
+    out["forward"], out["unmeshed"] = {}, {}
+    for label, params in models.items():
+        cfg = gloo_model_config(label)
+        out["forward"][label] = meshed_forward(cfg, place(
+            params, param_shardings(cfg, train, mesh)), mesh, tokens).numpy()
+        with torch.no_grad():
+            out["unmeshed"][label] = forward(params, cfg, tokens)[0].numpy()
+
+    # the expert-parallel all-to-all against dispatch, forward and
+    # gradient, on the same mesh
+    cfg_a, cfg_d = gloo_model_config("moe"), gloo_model_config(
+        "moe-dispatch")
+    moe_params = init_params(cfg_d, torch.Generator().manual_seed(0))
+    placed = {id(m): place(moe_params, param_shardings(cfg_d, train, m))
+              for m in (mesh, mesh41)}
+    calls = []
+    a2a = moe.moe_apply_alltoall
+    moe.moe_apply_alltoall = lambda *a: (calls.append(1), a2a(*a))[1]
+    try:
+        ld = meshed_forward(cfg_d, placed[id(mesh)], mesh, tokens)
+        la = meshed_forward(cfg_a, placed[id(mesh)], mesh, tokens)
+        out["a2a_calls"] = len(calls)
+        out["a2a_err"] = float((ld - la).abs().max())
+
+        def grads(cfg):
+            shd = Sharder(mesh, train)
+            pp = placed[id(mesh)]
+            with meshed(shd):
+                leaves = [t.detach().requires_grad_(True)
+                          for _, t in tree_leaves_with_path(pp)]
+                it = iter(leaves)
+                live = tree_map(lambda _: next(it), pp)
+                # the cross-entropy alone: the aux loss of the all-to-all
+                # is the mean of each token slice's, as the reference's
+                # is, not dispatch's over all the tokens
+                loss = loss_fn(live, cfg, place_input(shd, "tokens", tokens,
+                                                      "cpu"),
+                               place_input(shd, "labels", labels, "cpu"),
+                               shd, aux_coeff=0.0)[0]
+                return {k: full(g) for (k, _), g in zip(
+                    tree_leaves_with_path(pp),
+                    torch.autograd.grad(loss, leaves))}
+
+        ga, gd = grads(cfg_a), grads(cfg_d)
+        out["a2a_grad_norm_sq"] = sum(float((g.float() ** 2).sum())
+                                      for g in ga.values())
+        out["a2a_grad_rel"] = {
+            "/".join(k): float((ga[k] - gd[k]).abs().max()
+                               / max(float(gd[k].norm()), 1e-30))
+            for k in gd}
+        # where the reference takes dispatch: model = 1, and a local token
+        # count (2 // 2 x 3 = 3) that does not divide by model = 2
+        calls.clear()
+        out["model1_err"] = float((meshed_forward(
+            cfg_a, placed[id(mesh41)], mesh41, tokens) - ld).abs().max())
+        out["model1_calls"] = len(calls)
+        odd = tokens[:2, :3]
+        out["odd_err"] = float((meshed_forward(
+            cfg_a, placed[id(mesh)], mesh, odd) - ld[:2, :3]).abs().max())
+        out["odd_calls"] = len(calls)
+    finally:
+        moe.moe_apply_alltoall = a2a
+    out["applies"] = {
+        "2x2": moe.alltoall_applies(cfg_a, mesh, tokens.shape),
+        "4x1": moe.alltoall_applies(cfg_a, mesh41, tokens.shape),
+        "odd": moe.alltoall_applies(cfg_a, mesh, odd.shape),
+        "dispatch": moe.alltoall_applies(cfg_d, mesh, tokens.shape)}
+
+    # one train step of the dense model, meshed against unmeshed (the
+    # all-to-all's aux loss is not dispatch's, so its step is not held to
+    # the unmeshed one)
+    out["train"] = {}
+    for label, cfg, params in (("dense", gloo_model_config("dense"),
+                                models["dense"]),):
+        p1, _, m1 = make_train_step(cfg, warmup_steps=0)(
+            params, adamw_init(params), batch)
+        pp = place(params, param_shardings(cfg, train, mesh))
+        p2, o2, m2 = make_train_step(cfg, mesh, train, warmup_steps=0)(
+            pp, adamw_init(pp), batch)
+        params2 = dict(tree_leaves_with_path(p2))
+        out["train"][label] = {
+            "param_max_abs": max_abs(p1, p2),
+            "lr": float(m1["lr"]),
+            "loss": (float(m1["loss"]), float(m2["loss"])),
+            "grad_norm": (float(m1["grad_norm"]), float(m2["grad_norm"])),
+            "moments_placed": all(
+                m.placements == params2[k].placements
+                for k, m in tree_leaves_with_path(o2.mu)),
+            "step": int(o2.step),
+            "params_placed": all(
+                t.placements == q.placements for (_, t), (_, q)
+                in zip(tree_leaves_with_path(p2), tree_leaves_with_path(pp)))}
+
+    # greedy tokens, meshed against unmeshed
+    out["serve"] = {}
+    prompts = inputs["prompts"]
+    for label, params in models.items():
+        cfg = gloo_model_config(label)
+        want = ServeEngine(cfg, params, GLOO_MAX_LEN, device="cpu").generate(
+            prompts, GLOO_NEW)
+        got = ServeEngine(cfg, place(params, param_shardings(
+            cfg, make_rules("decode"), mesh)), GLOO_MAX_LEN,
+            mesh=mesh).generate(prompts, GLOO_NEW)
+        out["serve"][label] = (want.tokens, got.tokens)
+
+    # the checkpoint onto two meshes, and one the port saves across them
+    cfg, params = gloo_model_config("dense"), models["dense"]
+    ck = Checkpointer(os.path.join(out_dir, "ckpt"))
+    out["ckpt"] = {}
+    for name, m in (("4x1", mesh41), ("2x2", mesh)):
+        shardings = param_shardings(cfg, train, m)
+        got = ck.restore(1, params, shardings=shardings)
+        want = dict(tree_leaves_with_path(shardings))
+        out["ckpt"][name] = {
+            "/".join(k): (t.full_tensor().numpy(),
+                          t.placements == placements(want[k].spec, m),
+                          t.device_mesh is m)
+            for k, t in tree_leaves_with_path(got)}
+    port = Checkpointer(os.path.join(out_dir, "port_ckpt"))
+    port.save(3, got)
+    back = port.restore(3, params,
+                        shardings=param_shardings(cfg, train, mesh41))
+    out["ckpt"]["port 2x2 -> 4x1"] = {
+        "/".join(k): (t.full_tensor().numpy(), True, True)
+        for k, t in tree_leaves_with_path(back)}
+
+    # the collectives of each step (every rank issues the same)
+    out["collectives"] = {}
+    for step, label in GLOO_COLLECTIVE_CASES:
+        cfg = gloo_model_config(label)
+        params = moe_params if label.startswith("moe") else models[label]
+        log = collective_log(torch)
+        if step == "decode":
+            decode = make_rules("decode", cfg.decode_rule_overrides)
+            pd = place(params, param_shardings(cfg, decode, mesh))
+            cache = place(init_cache(cfg, GLOO_BATCH, GLOO_SEQ, "cpu"),
+                          tree_shardings(
+                              cache_logical_axes(cfg, GLOO_BATCH, GLOO_SEQ),
+                              decode, mesh,
+                              abstract_cache(cfg, GLOO_BATCH, GLOO_SEQ)))
+            serve = make_serve_step(cfg, mesh, decode)
+            with torch.no_grad(), log:
+                serve(pd, cache, tokens[:, :1], GLOO_PROMPT)
+        elif step == "forward":
+            pp = place(params, param_shardings(cfg, train, mesh))
+            shd = Sharder(mesh, train)
+            with torch.no_grad(), meshed(shd), log:
+                loss_fn(pp, cfg, place_input(shd, "tokens", tokens, "cpu"),
+                        place_input(shd, "labels", labels, "cpu"), shd)
+        else:
+            pp = place(params, param_shardings(cfg, train, mesh))
+            step_fn = make_train_step(cfg, mesh, train, warmup_steps=0)
+            opt = adamw_init(pp)
+            with log:
+                step_fn(pp, opt, batch)
+        out["collectives"][step, label] = collective_totals(log.ops,
+                                                            ring_bytes)
+    return out
+
+
+def shard_float32_check(np, torch, mesh, card: str) -> dict:
+    """qwen2-0.5b x2 float32: the meshed forward (train rules) and decode
+    over the prompt (decode rules) against the unmeshed ones on the
+    card."""
+    from repro_torch.models import (
+        abstract_cache,
+        cache_logical_axes,
+        decode_step,
+        forward,
+        init_cache,
+        init_params,
+    )
+    from repro_torch.models.layers import Sharder, meshed
+    from repro_torch.sharding import (
+        make_rules,
+        param_shardings,
+        place,
+        tree_shardings,
+    )
+
+    cfg = float32_config(LM_ARCH, num_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (SHARD_CHECK_BATCH, SHARD_CHECK_PROMPT)).astype(
+            np.int32)).to(DEV)
+    train, decode = make_rules("train"), make_rules("decode")
+    b, p = tokens.shape
+    with torch.no_grad():
+        want = forward(params, cfg, tokens)[0]
+        shd = Sharder(mesh, train)
+        with meshed(shd):
+            got = forward(place(params, param_shardings(cfg, train, mesh)),
+                          cfg, tokens, shd)[0].full_tensor()
+        scale = float(want.abs().max())
+        fwd_err = float((got - want).abs().max())
+        placed = place(params, param_shardings(cfg, decode, mesh))
+        cache = init_cache(cfg, b, p, DEV)
+        mcache = place(init_cache(cfg, b, p, DEV), tree_shardings(
+            cache_logical_axes(cfg, b, p), decode, mesh,
+            abstract_cache(cfg, b, p)))
+        shd = Sharder(mesh, decode)
+        dec_err = 0.0
+        for i in range(p):
+            step = tokens[:, i:i + 1]
+            w, cache = decode_step(params, cfg, cache, step, i)
+            with meshed(shd):
+                g, mcache = decode_step(placed, cfg, mcache, step, i, shd)
+            dec_err = max(dec_err, float((g.full_tensor() - w).abs().max()))
+    bound = LM_REL_BOUND * scale
+    check(fwd_err <= bound, f"shard [{LM_ARCH} x{TRAIN_CHECK_LAYERS}]: "
+                            f"meshed forward differs by {fwd_err} > {bound}")
+    check(dec_err <= bound, f"shard [{LM_ARCH} x{TRAIN_CHECK_LAYERS}]: "
+                            f"meshed decode differs by {dec_err} > {bound}")
+    del params, placed, cache, mcache, want, got
+    free_card(torch)
+    print(f"shard [{LM_ARCH} x{TRAIN_CHECK_LAYERS} float32]: on the (1, 1) "
+          f"mesh, forward (train rules) against unmeshed max abs "
+          f"{fwd_err:.3e}, decode over {p} positions (decode rules, the "
+          f"cache written into its local shard) {dec_err:.3e}; bound "
+          f"{bound:.3e} ({LM_REL_BOUND:g} of max|logit| {scale:.3f}); {card}",
+          flush=True)
+    return {"forward_max_abs": fwd_err, "decode_max_abs": dec_err,
+            "bound": bound}
+
+
+def shard_serve_leg(np, torch, mesh, card: str) -> dict:
+    """qwen2-0.5b at full depth in bfloat16: ``ServeEngine(mesh=...)``
+    against the unmeshed engine, greedy tokens equal, decode ms a step of
+    each (CUDA events, median), and the reckoned per-device parameter
+    bytes against the placed local shards."""
+    from repro_torch.launch.dryrun import param_bytes_per_device
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves_with_path
+    from repro_torch.serve import ServeEngine
+    from repro_torch.sharding import make_rules, param_shardings, place
+
+    cfg = lm_config(LM_ARCH)
+    decode = make_rules("decode", cfg.decode_rule_overrides)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    placed = place(params, param_shardings(cfg, decode, mesh))
+    reckoned = param_bytes_per_device(cfg, decode, mesh)
+    local = sum(t.to_local().numel() * t.to_local().element_size()
+                for _, t in tree_leaves_with_path(placed))
+    check(local == reckoned, f"shard: {local} placed parameter bytes, "
+                             f"{reckoned} reckoned")
+    prompts = np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+    max_len = LM_PROMPT + SHARD_SERVE_NEW
+    engines = {"unmeshed": (ServeEngine(cfg, params, max_len, device=DEV),
+                            params),
+               "meshed": (ServeEngine(cfg, placed, max_len, mesh=mesh),
+                          placed)}
+    out = {"param_bytes_reckoned": reckoned, "param_bytes_placed": local}
+    tokens = {}
+    for name, (eng, p) in engines.items():
+        eng.generate(prompts, 4)          # warm-up
+        t0 = time.perf_counter()
+        tokens[name] = eng.generate(prompts, SHARD_SERVE_NEW).tokens
+        gen_s = time.perf_counter() - t0
+        with torch.no_grad():
+            logits, cache = eng._prefill(p, torch.from_numpy(prompts).to(DEV))
+            cache = eng._decode_cache(cache)
+            tok = eng._sample(logits, 0.0, None)
+            marks = [torch.cuda.Event(enable_timing=True)
+                     for _ in range(SHARD_SERVE_NEW + 1)]
+            marks[0].record()
+            for i in range(SHARD_SERVE_NEW):
+                logits, cache = eng._serve(p, cache, tok, LM_PROMPT + i)
+                tok = eng._sample(logits, 0.0, None)
+                marks[i + 1].record()
+            marks[-1].synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        out[name] = {"generate_s": gen_s,
+                     "decode_ms": statistics.median(step_ms),
+                     "decode_step_ms": step_ms}
+        del cache, logits
+    check(np.array_equal(tokens["meshed"], tokens["unmeshed"]),
+          "shard: the meshed engine's greedy tokens differ from the "
+          "unmeshed engine's")
+    ratio = out["meshed"]["decode_ms"] / out["unmeshed"]["decode_ms"]
+    out["decode_ratio"] = ratio
+    del engines, params, placed
+    free_card(torch)
+    print(f"shard [{LM_ARCH} {cfg.param_dtype}]: ServeEngine(mesh=...) on "
+          f"the (1, 1) mesh, batch {LM_BATCH}, prompt {LM_PROMPT}, "
+          f"{SHARD_SERVE_NEW} new tokens: greedy tokens equal to the "
+          f"unmeshed engine's; decode {out['meshed']['decode_ms']:.3f} ms a "
+          f"step meshed against {out['unmeshed']['decode_ms']:.3f} unmeshed "
+          f"(median, CUDA events; {ratio:.2f}x, DTensor's dispatch); "
+          f"generate {out['meshed']['generate_s']:.3f} s against "
+          f"{out['unmeshed']['generate_s']:.3f} s; parameter bytes on the "
+          f"device {local:,}, as reckoned; {card}", flush=True)
+    return out
+
+
+def shard_moe_and_train(np, torch, mesh, card: str) -> dict:
+    """phi3.5-moe x2 float32 under the mesh against unmeshed (with
+    ``moe_impl="alltoall"``: model = 1, so the path is dispatch, as in
+    the reference), then one meshed train step of qwen2-0.5b x2 against
+    the unmeshed one."""
+    from repro_torch.models import forward, init_params, moe
+    from repro_torch.models.layers import Sharder, meshed
+    from repro_torch.optim import adamw_init
+    from repro_torch.sharding import make_rules, param_shardings, place
+    from repro_torch.train import make_train_step
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+
+    train = make_rules("train")
+    cfg = float32_config(LM_MOE_ARCH, num_layers=LM_FAMILY_LAYERS,
+                         moe_impl="alltoall")
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (SHARD_CHECK_BATCH, SHARD_CHECK_PROMPT)).astype(
+            np.int32)).to(DEV)
+    applies = moe.alltoall_applies(cfg, mesh, tuple(tokens.shape))
+    check(not applies, "shard: the all-to-all path on a model = 1 mesh")
+    calls = []
+    a2a = moe.moe_apply_alltoall
+    moe.moe_apply_alltoall = lambda *a: (calls.append(1), a2a(*a))[1]
+    try:
+        with torch.no_grad():
+            want = forward(params, cfg, tokens)[0]
+            shd = Sharder(mesh, train)
+            with meshed(shd):
+                got = forward(place(params, param_shardings(cfg, train,
+                                                             mesh)),
+                              cfg, tokens, shd)[0].full_tensor()
+    finally:
+        moe.moe_apply_alltoall = a2a
+    check(not calls, "shard: moe_apply_alltoall ran on a model = 1 mesh")
+    moe_err = float((got - want).abs().max())
+    moe_bound = LM_REL_BOUND * float(want.abs().max())
+    check(moe_err <= moe_bound, f"shard [{LM_MOE_ARCH}]: meshed forward "
+                                f"differs by {moe_err} > {moe_bound}")
+    del params, want, got
+    free_card(torch)
+    print(f"shard [{LM_MOE_ARCH} x{LM_FAMILY_LAYERS} float32]: "
+          f"moe_impl=alltoall on the (1, 1) mesh takes dispatch (model = 1, "
+          f"as the reference does); meshed forward against unmeshed max abs "
+          f"{moe_err:.3e} (bound {moe_bound:.3e}); {card}", flush=True)
+
+    cfg = float32_config(TRAIN_ARCH, num_layers=TRAIN_CHECK_LAYERS)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    batch = TokenDataset(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=TRAIN_CHECK_BATCH)).batch(0)
+    p1, _, m1 = make_train_step(cfg, warmup_steps=0)(
+        params, adamw_init(params), batch)
+    placed = place(params, param_shardings(cfg, train, mesh))
+    p2, _, m2 = make_train_step(cfg, mesh, train, warmup_steps=0)(
+        placed, adamw_init(placed), batch)
+    lr = float(m1["lr"])
+    param_err = tree_max_abs(p1, p2)
+    loss_rel = abs(float(m2["loss"]) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    check(param_err <= TRAIN_PARAM_LR_SHARE * lr,
+          f"shard: the meshed train step's parameters differ by "
+          f"{param_err} > {TRAIN_PARAM_LR_SHARE * lr}")
+    check(loss_rel <= TRAIN_REL_BOUND,
+          f"shard: the meshed train step's loss differs by {loss_rel}")
+    del params, placed, p1, p2
+    free_card(torch)
+    print(f"shard [{TRAIN_ARCH} x{TRAIN_CHECK_LAYERS} float32]: one meshed "
+          f"train step against the unmeshed one: parameters max abs "
+          f"{param_err:.3e} (bound {TRAIN_PARAM_LR_SHARE * lr:.3e}, "
+          f"{TRAIN_PARAM_LR_SHARE:g} of lr), loss relative {loss_rel:.3e}; "
+          f"{card}", flush=True)
+    return {"moe_max_abs": moe_err, "moe_bound": moe_bound,
+            "moe_path": "dispatch", "train_param_max_abs": param_err,
+            "train_param_bound": TRAIN_PARAM_LR_SHARE * lr,
+            "train_loss_rel": loss_rel}
+
+
+def shard_phase(np, torch, card: str) -> dict:
+    """Phase 10: the LM dry run and the meshed LM paths on a one-rank
+    mesh, then the gloo rehearsal on the host alone, every kernel launch
+    counter set to 0 just before (they launch none of the nine
+    kernels)."""
+    t_phase = time.perf_counter()
+    modules = reset_kernel_counts()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {}
+    shard_card_legs(np, torch, card, report)
+    report["gloo"] = shard_gloo_leg(np, torch)
+    launches = check_no_kernel_launched(modules, "sharding")
+    report["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10 (sharding, LM dry run): {report['seconds']:.1f} s; "
+          f"the meshed paths launched none of the nine kernels "
+          f"{json.dumps(launches)}", flush=True)
+    return report
+
+
+def shard_gloo_leg(np, torch) -> dict:
+    """The gloo rehearsal on the host's CPU and its torch, after the
+    card's legs: each meshed result against the port's unmeshed one (the
+    tests hold the same run against the JAX package), and the collectives
+    each step issued beside ``dryrun.reckon_collectives``."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun import reckon_collectives
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import tree_leaves_with_path, tree_map
+    from repro_torch.sharding import AbstractMesh, make_rules
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        params = {label: init_params(gloo_model_config(label),
+                                     torch.Generator().manual_seed(0))
+                  for label in GLOO_MODELS}
+        gloo_write_inputs(
+            np, out_dir, {label: tree_map(lambda t: t.numpy(), p)
+                          for label, p in params.items()},
+            lambda path: Checkpointer(path).save(1, params["dense"]))
+        got = gloo_results(gloo_start(out_dir), out_dir, GLOO_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for label in GLOO_MODELS:
+        check(np.allclose(got["forward"][label], got["unmeshed"][label],
+                          atol=GLOO_FWD_ATOL, rtol=GLOO_FWD_RTOL),
+              f"shard: the gloo rehearsal's meshed {label} forward differs "
+              f"from the unmeshed one")
+        want, tokens = got["serve"][label]
+        check(np.array_equal(want, tokens), f"shard: the gloo rehearsal's "
+                                            f"meshed {label} greedy tokens "
+                                            f"differ")
+    grad_rel = max(got["a2a_grad_rel"].values())
+    check(got["a2a_calls"] == 2 and got["a2a_err"] < GLOO_A2A_BOUND
+          and np.isfinite(got["a2a_grad_norm_sq"])
+          and got["a2a_grad_norm_sq"] > 0 and grad_rel <= GLOO_GRAD_REL,
+          f"shard: the all-to-all against dispatch: {got['a2a_calls']} "
+          f"calls, {got['a2a_err']}, gradient {grad_rel}")
+    check(got["applies"] == {"2x2": True, "4x1": False, "odd": False,
+                             "dispatch": False}
+          and got["model1_calls"] == got["odd_calls"] == 0
+          and max(got["model1_err"], got["odd_err"]) < GLOO_A2A_BOUND,
+          f"shard: the all-to-all where the reference takes dispatch: "
+          f"{got['applies']}")
+    for label, t in got["train"].items():
+        check(t["step"] == 1 and t["moments_placed"] and t["params_placed"]
+              and t["param_max_abs"] <= TRAIN_PARAM_LR_SHARE * t["lr"],
+              f"shard: the gloo rehearsal's meshed {label} train step: {t}")
+    dense = {"/".join(k): t.numpy()
+             for k, t in tree_leaves_with_path(params["dense"])}
+    for name, leaves in got["ckpt"].items():
+        check(set(leaves) == set(dense) and all(
+            np.array_equal(full, dense[k]) and placed and on_mesh
+            for k, (full, placed, on_mesh) in leaves.items()),
+            f"shard: the checkpoint restored {name} differs")
+    # the collectives against the reckoning (a reading, not a check: the
+    # tests hold torch 2.13's to it)
+    mesh = AbstractMesh(got["mesh"], ("data", "model"))
+    reading = {}
+    for (step, label), m in got["collectives"].items():
+        cfg = gloo_model_config(label)
+        kind = "decode" if step == "decode" else "train"
+        shape = ShapeConfig("t", kind, GLOO_SEQ, GLOO_BATCH)
+        rules = make_rules(kind, cfg.decode_rule_overrides
+                           if kind == "decode" else None)
+        r = reckon_collectives(cfg, shape, mesh, rules)
+        if step == "train":
+            reading[f"{step} {label}"] = {
+                "measured_bytes": sum(m["all"]["bytes"].values()),
+                "reckoned_bytes": r["total"]}
+        else:
+            want = {k: (r["forward"]["counts"][k], r["forward"]["bytes"][k])
+                    for k in r["forward"]["counts"]
+                    if r["forward"]["counts"][k]}
+            have = {k: (m["all"]["counts"][k], m["all"]["bytes"][k])
+                    for k in m["all"]["counts"]}
+            reading[f"{step} {label}"] = {"equal": have == want,
+                                          "measured": have}
+    print(f"shard: the gloo rehearsal ({GLOO_PROCS} processes, mesh "
+          f"{got['mesh']}, torch {got['torch']}) in {seconds:.1f} s: dense "
+          f"and MLA forward against unmeshed within atol {GLOO_FWD_ATOL:g} "
+          f"rtol {GLOO_FWD_RTOL:g}, greedy tokens equal; the all-to-all "
+          f"against dispatch {got['a2a_err']:.3e}, its gradient within "
+          f"{grad_rel:.3e} of each leaf's norm; the dense train step "
+          f"within {TRAIN_PARAM_LR_SHARE:g} of lr; the "
+          f"checkpoint restored onto (4, 1) and (2, 2); collectives "
+          f"against the reckoning {json.dumps(reading)}", flush=True)
+    return {"seconds": seconds, "a2a_err": got["a2a_err"],
+            "a2a_grad_rel": grad_rel, "torch": got["torch"],
+            "collectives": reading}
+
+
+def shard_card_legs(np, torch, card: str, report: dict) -> None:
+    """Phase 10's legs on the card: the dry run, then a one-rank process
+    group's (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+
+    # every LM cell of the sweep, reckoned: nothing allocated
+    total = torch.cuda.get_device_properties(0).total_memory
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        failed = dryrun.run_lm_cells(out)
+        sweep_s = time.perf_counter() - t0
+        recs = [json.load(open(p)) for p in sorted(glob.glob(
+            os.path.join(out, "*.json")))]
+    check(not failed and recs and all(r["ok"] and r["reckoned"]
+                                      for r in recs),
+          f"shard: {failed} dry-run cells failed")
+    check(torch.cuda.memory_allocated() == before,
+          "shard: the dry run allocated on the card")
+    over = sorted(f"{r['arch']} x {r['shape']} x {r['mesh']}" for r in recs
+                  if r["memory"]["argument_size_in_bytes"] > total)
+    report["dryrun"] = {"cells": len(recs), "seconds": sweep_s,
+                        "over_total_memory": over, "total_memory": total}
+    print(f"shard: the LM dry run reckoned {len(recs)} cells, every one ok, "
+          f"in {sweep_s:.2f} s, memory_allocated unchanged; per-device "
+          f"argument bytes above the card's {total:,} B: {len(over)} cells "
+          f"{json.dumps(over)}; {card}", flush=True)
+
+    # a one-rank process group and its (1, 1) mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        if DEV == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            SHARD_BACKEND, store=dist.FileStore(os.path.join(tmp, "pg"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(device=DEV)
+            check(tuple(mesh.shape) == (1, 1)
+                  and mesh.mesh_dim_names == ("data", "model")
+                  and mesh.device_type == DEV,
+                  f"shard: make_host_mesh gave {mesh}")
+            print(f"shard: {SHARD_BACKEND} process group of one rank, "
+                  f"make_host_mesh() = {tuple(mesh.shape)} "
+                  f"{mesh.mesh_dim_names} on {mesh.device_type}", flush=True)
+            report["float32"] = shard_float32_check(np, torch, mesh, card)
+            report["serve"] = shard_serve_leg(np, torch, mesh, card)
+            report.update(shard_moe_and_train(np, torch, mesh, card))
+        finally:
+            dist.destroy_process_group()
 
 
 def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
@@ -3255,6 +4114,10 @@ def main() -> int:
     train = train_phase(np, torch, card)
     free()
 
+    # 10. sharding and the LM dry run
+    shard = shard_phase(np, torch, card)
+    free()
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         main_row = timings[name][0]
@@ -3284,6 +4147,7 @@ def main() -> int:
             kernels[-1]["batch_entry"] = batch_entry
     print("lm: " + json.dumps(lm), flush=True)
     print("train: " + json.dumps(train), flush=True)
+    print("shard: " + json.dumps(shard), flush=True)
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

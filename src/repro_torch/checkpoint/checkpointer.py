@@ -33,11 +33,16 @@ are written as JAX's ``keystr`` writes them (``['runs']``, ``[0]``,
 ``.mu``), so a training checkpoint of either package restores in the
 other.
 
-Restore: ``restore(step, like, device=None)`` rebuilds ``like``'s
-structure; each leaf takes ``like``'s dtype. A leaf whose ``like`` is a
-torch tensor comes back as a tensor (on ``device``, or where ``like``'s
-lies), every leaf does when ``device`` is given, and the rest come back as
-numpy arrays. The reference narrows int64 to int32 on restore (JAX runs with
+Restore: ``restore(step, like, device=None, shardings=None)`` rebuilds
+``like``'s structure; each leaf takes ``like``'s dtype. A leaf whose
+``like`` is a torch tensor comes back as a tensor (on ``device``, or where
+``like``'s lies), every leaf does when ``device`` is given, and the rest
+come back as numpy arrays. With ``shardings``, a tree of
+``sharding.NamedSharding`` shaped like ``like`` (elastic restart), each
+leaf is distributed over its sharding's mesh as a DTensor
+(``sharding.place``): a checkpoint saved under one mesh, or by the JAX
+package, restores under another, since the files hold whole arrays.
+The reference narrows int64 to int32 on restore (JAX runs with
 x64 off); the port keeps int64. ``OptState.step`` is int32 in both
 packages and restores as int32.
 """
@@ -56,6 +61,7 @@ from typing import Any, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.models.layers import is_dtensor
 from repro_torch.optim.adamw import OptState
 
 _SHARD_BYTES = 512 * 1024 * 1024
@@ -96,7 +102,10 @@ def _unflatten(like: Any, leaves: Iterator[Any]) -> Any:
 
 def _to_host(leaf: Any) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        leaf = leaf.detach().cpu()
+        leaf = leaf.detach()
+        if is_dtensor(leaf):     # gathered whole
+            leaf = leaf.full_tensor()
+        leaf = leaf.cpu()
         if leaf.dtype == torch.bfloat16:
             return leaf.view(torch.int16).numpy().view("V2")
         return leaf.numpy()
@@ -130,9 +139,21 @@ class Checkpointer:
     # -- save ---------------------------------------------------------------
 
     def save(self, step: int, tree: Any) -> str:
-        """Blocking unless async_save; returns the final step directory."""
+        """Blocking unless async_save; returns the final step directory.
+
+        DTensor leaves are gathered whole (a collective: every rank of the
+        mesh calls ``save``). In a process group of more than one rank,
+        rank 0 alone writes, synchronously, and every rank waits for it
+        at a barrier."""
         items = [(p, _to_host(v)) for p, v in _flatten_with_paths(tree)]
-        if self.async_save:
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            if dist.get_rank() == 0:
+                self.wait()
+                self._write(step, items)
+            dist.barrier()
+        elif self.async_save:
             self.wait()
             self._thread = threading.Thread(
                 target=self._write, args=(step, items), daemon=True
@@ -272,20 +293,24 @@ class Checkpointer:
                 RuntimeWarning, stacklevel=2)
         return None
 
-    def restore(self, step: int, like: Any, device: Any = None) -> Any:
+    def restore(self, step: int, like: Any, device: Any = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``like``; optionally onto a torch
-        ``device``."""
+        ``device``, or distributed by ``shardings``."""
         d = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         index = manifest["index"]
         files: dict[str, Any] = {}
 
-        def load(path: str, leaf: Any) -> Any:
+        def read(path: str) -> np.ndarray:
             meta = index[path]
             if meta["file"] not in files:
                 files[meta["file"]] = np.load(os.path.join(d, meta["file"]))
-            arr = files[meta["file"]][meta["key"]]
+            return files[meta["file"]][meta["key"]]
+
+        def load(path: str, leaf: Any) -> Any:
+            arr = read(path)
             if isinstance(leaf, torch.Tensor):
                 return _to_tensor(arr, leaf.dtype).to(
                     leaf.device if device is None else device)
@@ -294,5 +319,20 @@ class Checkpointer:
             return arr if device is None else torch.from_numpy(
                 np.asarray(arr)).to(device)
 
-        out = [load(p, leaf) for p, leaf in _flatten_with_paths(like)]
+        def load_placed(path: str, leaf: Any, sharding) -> Any:
+            from repro_torch.sharding.logical import place
+
+            arr = read(path)
+            if isinstance(leaf, torch.Tensor):
+                return place(_to_tensor(arr, leaf.dtype), sharding)
+            if hasattr(leaf, "dtype"):
+                arr = arr.astype(leaf.dtype)
+            return place(torch.from_numpy(np.asarray(arr)), sharding)
+
+        if shardings is None:
+            out = [load(p, leaf) for p, leaf in _flatten_with_paths(like)]
+        else:
+            by_path = dict(_flatten_with_paths(shardings))
+            out = [load_placed(p, leaf, by_path[p])
+                   for p, leaf in _flatten_with_paths(like)]
         return _unflatten(like, iter(out))

@@ -5,6 +5,8 @@ in place of the TPU v5e's (NVIDIA H100 SXM data sheet, dense rates, full
 700 W power limit):
 
   device memory          3.35 TB/s (HBM3)
+  bfloat16 on the        989 TFLOP/s (dense)
+  tensor cores
   float32 outside the    67 TFLOP/s (an FMA counts as two operations)
   tensor cores
   simple int32           132 SMs x 64 INT32 lanes x 1.98 GHz boost
@@ -24,21 +26,34 @@ reads its kernels' bound column from these functions, and
 launches, so the two reckon alike. The ychg and ccl kernels do int32
 operations, denoise float32.
 
-Not ported yet: ``collective_bytes`` and ``model_flops``, which read XLA's
-HLO text and the LM configurations; they come with the LM slice.
+For the LM cells: ``model_flops`` (6 N D for training, 2 N D for
+inference, the useful-work floor) and ``collective_bytes``, the
+reference's parser of an optimized HLO module's text (per-partition link
+bytes by collective kind from each result shape and replica-group size,
+with the same ring multipliers and float results counted at bfloat16
+width). The port compiles no HLO, so its own dry run reckons collectives
+from the sharding rules instead (``launch.dryrun.reckon_collectives``);
+the parser is here for artifacts of the reference's dry run. LM cells
+take the ``bfloat16`` rate. Their mesh keeps the reference's 16 x 16 (or
+2 x 16 x 16) shape and charges one NVLink direction, which is optimistic:
+a 16-wide "model" axis spans two 8-GPU NVLink domains, and a multi-pod
+"pod" axis crosses the network between hosts.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Tuple
 
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_OPS_PER_S = 989e12
 PEAK_FP32_OPS_PER_S = 67e12
 PEAK_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 LINK_BYTES_PER_S = 450e9
 # operation type -> the card's rate for it
 PEAK_OPS_PER_S = {"int32": PEAK_INT32_OPS_PER_S,
-                  "float32": PEAK_FP32_OPS_PER_S}
+                  "float32": PEAK_FP32_OPS_PER_S,
+                  "bfloat16": PEAK_BF16_OPS_PER_S}
 
 OPS_PER_PIXEL = 3          # ychg: compare, and-not, add
 # packed ychg: shift, a three-input logic op (b & ~(s | carry)), popcount,
@@ -232,3 +247,101 @@ def dominant(t: Dict[str, float]) -> str:
     vals = {k: t[k] for k in ("compute_s", "memory_s", "collective_s")}
     return max(vals, key=vals.get)
 
+
+
+def model_flops(cfg, shape) -> float:
+    """6*N_eff*D (train) / 2*N_eff*D (prefill/decode): the useful-work floor.
+
+    N_eff = active params minus the embedding lookup table when untied
+    (lookup is a gather, not a matmul; a tied table doubles as the lm_head
+    matmul so it stays).
+    """
+    from repro_torch.models import active_params
+
+    n = active_params(cfg)
+    if not cfg.tie_embeddings:
+        n -= cfg.vocab_size * cfg.d_model
+    if shape.kind == "train":
+        return 6.0 * n * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.global_batch * shape.seq_len
+    return 2.0 * n * shape.global_batch  # decode: one token
+
+
+# ------------------------------------------- the reference's HLO parser
+
+_DTYPE_BYTES = {
+    "pred": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "f16": 2, "bf16": 2,
+    "s32": 4, "u32": 4, "f32": 4, "s64": 8, "u64": 8, "f64": 8,
+    "c64": 8, "c128": 16,
+}
+_FLOAT_TYPES = {"f16", "bf16", "f32", "f64"}
+
+COLL_TYPES = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
+
+# `%name = TYPE[dims]{layout} op-name(...`  (also tuple-result async starts)
+_INSTR_RE = re.compile(
+    r"=\s*(?:\(?)\s*([a-z0-9]+)\[([0-9,]*)\][^=]*?\s"
+    r"(all-reduce|all-gather|reduce-scatter|all-to-all|collective-permute)"
+    r"(-start)?\("
+)
+_GROUPS_RE = re.compile(r"replica_groups=\[(\d+),(\d+)\]")
+_GROUPS_LIST_RE = re.compile(r"replica_groups=\{\{([0-9, ]+)\}")
+
+
+def _group_size(line: str, default: int) -> int:
+    m = _GROUPS_RE.search(line)
+    if m:
+        return int(m.group(2))
+    m = _GROUPS_LIST_RE.search(line)
+    if m:
+        return len(m.group(1).split(","))
+    return default
+
+
+def ring_bytes(op: str, result_bytes: float, g: int) -> float:
+    """Per-partition link bytes of one collective whose result holds
+    ``result_bytes``, over a group of ``g``, by the ring algorithms:
+    all-gather and all-to-all result x (g-1)/g, all-reduce result x
+    2(g-1)/g (reduce-scatter + all-gather), reduce-scatter result x (g-1)
+    (its operand is result x g), collective-permute result x 1."""
+    if op in ("all-gather", "all-to-all"):
+        return result_bytes * (g - 1) / g
+    if op == "all-reduce":
+        return result_bytes * 2 * (g - 1) / g
+    if op == "reduce-scatter":
+        return result_bytes * (g - 1)
+    return result_bytes
+
+
+def collective_bytes(hlo_text: str, *, clamp_float_to_bf16: bool = True,
+                     default_group: int = 16) -> Dict[str, float]:
+    """Per-partition link traffic (bytes) by collective type, + op counts,
+    from an optimized HLO module's text."""
+    out: Dict[str, float] = {t: 0.0 for t in COLL_TYPES}
+    counts: Dict[str, int] = {t: 0 for t in COLL_TYPES}
+    for line in hlo_text.splitlines():
+        m = _INSTR_RE.search(line)
+        if not m:
+            continue
+        dtype, dims, op = m.group(1), m.group(2), m.group(3)
+        if dtype not in _DTYPE_BYTES:
+            continue
+        if f"{op}-done" in line:
+            continue
+        n = 1
+        for d in dims.split(","):
+            if d:
+                n *= int(d)
+        width = _DTYPE_BYTES[dtype]
+        if clamp_float_to_bf16 and dtype in _FLOAT_TYPES:
+            width = min(width, 2)
+        out[op] += ring_bytes(op, n * width, _group_size(line, default_group))
+        counts[op] += 1
+    out["total"] = sum(out[t] for t in COLL_TYPES)
+    for t in COLL_TYPES:
+        out["_count_" + t] = counts[t]
+    return out

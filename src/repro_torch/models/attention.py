@@ -22,19 +22,30 @@ operands' dtype.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
 from repro_torch.models.layers import (
     Builder,
     Sharder,
     apply_rope,
+    as_dtensor,
     einsum,
     einsum_f32,
+    is_dtensor,
+    on_shards,
     rmsnorm,
     rope_angles,
+    shard_start,
+    write_index,
 )
 
 Tensor = torch.Tensor
+
+# the attention core's layout under a mesh: each batch row and head is
+# attended on its own, over the whole sequence
+CORE_AXES = ("act_batch", None, "act_heads", None)
 
 
 # ---------------------------------------------------------------------------
@@ -84,8 +95,8 @@ def _use_chunked(cfg, s_len: int) -> bool:
     return s_len > cfg.attn_chunk and s_len % cfg.attn_chunk == 0
 
 
-def _chunked_attention(q: Tensor, k: Tensor, v: Tensor, chunk: int,
-                       shd: Sharder) -> Tensor:
+def _chunked_attention(q: Tensor, k: Tensor, v: Tensor,
+                       chunk: int) -> Tensor:
     """q: (B,S,H,K), k/v: (B,S,H,K) (kv already head-expanded). Causal.
 
     Online softmax over kv chunks, one q chunk at a time; every
@@ -187,9 +198,10 @@ def attn_forward(p: dict, x: Tensor, cfg, shd: Sharder, positions: Tensor,
     cache = {"k": k, "v": v}
     kx, vx = _expand_kv(k, cfg.num_heads), _expand_kv(v, cfg.num_heads)
     if use_chunked and _use_chunked(cfg, x.shape[1]):
-        o = _chunked_attention(q, kx, vx, cfg.attn_chunk, shd)
+        o = on_shards(shd, lambda q_, k_, v_: _chunked_attention(
+            q_, k_, v_, cfg.attn_chunk), (CORE_AXES,) * 3, 0, q, kx, vx)
     else:
-        o = _full_attention(q, kx, vx)
+        o = on_shards(shd, _full_attention, (CORE_AXES,) * 3, 0, q, kx, vx)
     out = einsum("bshk,hkd->bsd", o, p["wo"])
     return shd(out, ("act_batch", "act_seq", "act_embed")), cache
 
@@ -205,18 +217,92 @@ def attn_decode(p: dict, x: Tensor, cfg, shd: Sharder, cache: dict,
     _check_index(cur_index, smax)
     pos = torch.full((b_, 1), cur_index, dtype=torch.int32, device=x.device)
     q, k, v = _qkv(p, x, cfg, pos)
-    ck[:, cur_index] = k[:, 0].to(ck.dtype)
-    cv[:, cur_index] = v[:, 0].to(cv.dtype)
+    write_index(ck, 1, cur_index, k[:, 0].to(ck.dtype))
+    write_index(cv, 1, cur_index, v[:, 0].to(cv.dtype))
     ck = shd(ck, ("act_batch", "act_kv_seq", "act_kv_heads", None))
     cv = shd(cv, ("act_batch", "act_kv_seq", "act_kv_heads", None))
-    qg = q.reshape(b_, g, h // g, kd)
-    s_ = einsum_f32("bgrk,bsgk->bgrs", qg, ck) * (kd ** -0.5)
-    valid = torch.arange(smax, device=x.device) <= cur_index
-    w = torch.softmax(torch.where(valid, s_, float("-inf")), dim=-1)
-    o = einsum_f32("bgrs,bsgk->bgrk", w, cv)
-    o = o.reshape(b_, 1, h, kd).to(x.dtype)
+    if is_dtensor(ck):
+        o = _sharded_cache_attention(q, ck, cv, cur_index, g,
+                                     kd ** -0.5).to(x.dtype)
+    else:
+        valid = torch.arange(smax, device=x.device) <= cur_index
+        o = _cache_attention(q.reshape(b_, g, h // g, kd), ck, cv, valid,
+                             kd ** -0.5).reshape(b_, 1, h, kd).to(x.dtype)
     out = einsum("bshk,hkd->bsd", o, p["wo"])
     return out, {"k": ck, "v": cv}
+
+
+def _cache_attention(qg: Tensor, ck: Tensor, cv: Tensor, valid: Tensor,
+                     scale: float) -> Tensor:
+    """qg: (B,G,R,K) against k/v (B,S,G,K) at the ``valid`` positions ->
+    (B,G,R,K) float32."""
+    s_ = einsum_f32("bgrk,bsgk->bgrs", qg, ck) * scale
+    w = torch.softmax(torch.where(valid, s_, float("-inf")), dim=-1)
+    return einsum_f32("bgrs,bsgk->bgrk", w, cv)
+
+
+def _split_softmax(s_: Tensor, valid: Tensor, values: Callable,
+                   seq_groups: list) -> Tensor:
+    """``values(softmax(s_))`` over the last dim at the ``valid``
+    positions, where that dim is this rank's shard of a sequence split
+    over ``seq_groups`` (flash-decode): the scores' max, the softmax's sum
+    and the weighted values are all-reduced over each group. ``values``
+    is linear in its weights. Decode runs without gradients."""
+    import torch.distributed as dist
+
+    s_ = torch.where(valid, s_, float("-inf"))
+    if not seq_groups:
+        return values(torch.softmax(s_, dim=-1))
+    m = s_.amax(-1, keepdim=True)
+    for grp in seq_groups:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=grp)
+    w = torch.exp(s_ - m)
+    total = w.sum(-1, keepdim=True)
+    o = values(w)
+    for grp in seq_groups:
+        dist.all_reduce(total, group=grp)
+        dist.all_reduce(o, group=grp)
+    return o / total
+
+
+def _cache_split(cache, cur_index: int):
+    """A DTensor cache (B, S, ...) as the decode rules lay it out: the
+    batch rows' placements, the groups that split its sequence, and which
+    of this rank's positions are at or before ``cur_index``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, lay = cache.device_mesh, cache.placements
+    rows = [Shard(0) if pl.is_shard(0) else Replicate() for pl in lay]
+    groups = [mesh.get_group(m) for m, pl in enumerate(lay)
+              if pl.is_shard(1)]
+    start = shard_start(cache, 1)
+    n = cache.to_local().shape[1]
+    valid = torch.arange(start, start + n,
+                         device=cache.to_local().device) <= cur_index
+    return rows, groups, valid
+
+
+def _sharded_cache_attention(q: Tensor, ck, cv, cur_index: int, g: int,
+                             scale: float):
+    """Decode attention of q (B,1,H,K) against a DTensor cache on this
+    rank's shard of it (batch over the batch axes, sequence over
+    "model"): the new token's heads gathered whole, the rank's positions
+    attended (``_split_softmax``). Returns (B,1,H,K) float32 laid out by
+    the cache's batch split."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = ck.device_mesh
+    rows, groups, valid = _cache_split(ck, cur_index)
+    q_loc = as_dtensor(q, mesh).redistribute(mesh, rows).to_local()
+    b_, _, h, kd = q_loc.shape
+    qg = q_loc.reshape(b_, g, h // g, kd)
+    ck_loc = ck.to_local()
+    cv_loc = cv.redistribute(mesh, ck.placements).to_local()
+    o = _split_softmax(einsum_f32("bgrk,bsgk->bgrs", qg, ck_loc) * scale,
+                       valid, lambda w: einsum_f32("bgrs,bsgk->bgrk", w,
+                                                   cv_loc), groups)
+    return DTensor.from_local(o.reshape(b_, 1, h, kd), mesh, rows,
+                              run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -251,15 +337,21 @@ def mla_forward(p: dict, x: Tensor, cfg, shd: Sharder, positions: Tensor,
     k = torch.cat([k_nope, k_rope_h], dim=-1)
     q = shd(q, ("act_batch", "act_seq", "act_heads", None))
     k = shd(k, ("act_batch", "act_seq", "act_heads", None))
-    # v head dim may differ from qk dim; pad v to qk width for the shared core
+    # v head dim may differ from qk dim; pad v to qk width for the shared
+    # core (on each rank's shard: torch 2.11's DTensor cannot pad)
     dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
     dv = cfg.v_head_dim
     if use_chunked and _use_chunked(cfg, x.shape[1]):
-        vpad = (torch.nn.functional.pad(v, (0, dqk - dv)) if dqk > dv
-                else v)
-        o = _chunked_attention(q, k, vpad, cfg.attn_chunk, shd)[..., :dv]
+        def core(q_, k_, v_):
+            if dqk > dv:
+                v_ = torch.nn.functional.pad(v_, (0, dqk - dv))
+            return _chunked_attention(q_, k_, v_, cfg.attn_chunk)[..., :dv]
+
+        o = on_shards(shd, core, (CORE_AXES,) * 3, 0, q, k, v)
     else:
-        o = _causal_softmax_attention(q, k, v, dqk ** -0.5).to(x.dtype)
+        o = on_shards(shd, lambda q_, k_, v_: _causal_softmax_attention(
+            q_, k_, v_, dqk ** -0.5).to(x.dtype), (CORE_AXES,) * 3, 0,
+            q, k, v)
     out = einsum("bshv,hvd->bsd", o, p["wo"])
     cache = {"ckv": ckv, "k_rope": k_rope}
     return shd(out, ("act_batch", "act_seq", "act_embed")), cache
@@ -281,19 +373,48 @@ def mla_decode(p: dict, x: Tensor, cfg, shd: Sharder, cache: dict,
     _check_index(cur_index, smax)
     pos = torch.full((b_, 1), cur_index, dtype=torch.int32, device=x.device)
     q_nope, q_rope, ckv_new, k_rope_new = _mla_qkv(p, x, cfg, pos)
-    c[:, cur_index] = ckv_new[:, 0].to(c.dtype)
-    kr[:, cur_index] = k_rope_new[:, 0].to(kr.dtype)
+    write_index(c, 1, cur_index, ckv_new[:, 0].to(c.dtype))
+    write_index(kr, 1, cur_index, k_rope_new[:, 0].to(kr.dtype))
     c = shd(c, ("act_batch", "act_kv_seq", None))
     kr = shd(kr, ("act_batch", "act_kv_seq", None))
     # absorb W_uk into q:  (B,1,H,dn) x (r,h,dn) -> (B,H,r)
     q_c = einsum("bshk,rhk->bhr", q_nope, p["wk_up"])
-    s_c = einsum_f32("bhr,bsr->bhs", q_c, c)
-    s_r = einsum_f32("bshk,btk->bht", q_rope, kr)
-    dqk = cfg.qk_nope_dim + cfg.qk_rope_dim
-    s_ = (s_c + s_r) * (dqk ** -0.5)
-    valid = torch.arange(smax, device=x.device) <= cur_index
-    w = torch.softmax(torch.where(valid, s_, float("-inf")), dim=-1)
-    o_c = einsum_f32("bhs,bsr->bhr", w, c)
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    if is_dtensor(c):
+        o_c = _sharded_mla_attention(q_c, q_rope, c, kr, cur_index, scale)
+    else:
+        valid = torch.arange(smax, device=x.device) <= cur_index
+        o_c = _mla_cache_attention(q_c, q_rope, c, kr, valid, scale, [])
     o = einsum("bhr,rhv->bhv", o_c.to(x.dtype), p["wv_up"])
     out = einsum("bhv,hvd->bd", o, p["wo"])[:, None, :]
     return out, {"ckv": c, "k_rope": kr}
+
+
+def _mla_cache_attention(q_c: Tensor, q_rope: Tensor, c: Tensor,
+                         kr: Tensor, valid: Tensor, scale: float,
+                         seq_groups: list) -> Tensor:
+    """The absorbed scores of q_c (B,H,r) and q_rope (B,1,H,dr) against
+    the compressed cache c (B,S,r), kr (B,S,dr) at the ``valid``
+    positions, their softmax applied to c -> (B,H,r) float32."""
+    s_ = (einsum_f32("bhr,bsr->bhs", q_c, c)
+          + einsum_f32("bshk,btk->bht", q_rope, kr)) * scale
+    return _split_softmax(s_, valid,
+                          lambda w: einsum_f32("bhs,bsr->bhr", w, c),
+                          seq_groups)
+
+
+def _sharded_mla_attention(q_c, q_rope, c, kr, cur_index: int,
+                           scale: float):
+    """``_mla_cache_attention`` on this rank's shard of a DTensor cache,
+    the new token's heads gathered whole, as ``_sharded_cache_attention``
+    does. Returns (B,H,r) float32 laid out by the cache's batch split."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = c.device_mesh
+    rows, groups, valid = _cache_split(c, cur_index)
+    q_c_loc, q_rope_loc = (as_dtensor(t, mesh).redistribute(
+        mesh, rows).to_local() for t in (q_c, q_rope))
+    kr_loc = kr.redistribute(mesh, c.placements).to_local()
+    o = _mla_cache_attention(q_c_loc, q_rope_loc, c.to_local(), kr_loc,
+                             valid, scale, groups)
+    return DTensor.from_local(o, mesh, rows, run_check=False)

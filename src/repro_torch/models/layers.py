@@ -11,6 +11,35 @@ storage, so a 400B-parameter tree costs nothing to build).
 
 Trees are nested dicts; ``None`` is an empty subtree (the cache's
 ``channel`` entry of an attention layer) and anything else is a leaf.
+
+Under a mesh, ``Sharder`` lays activations out as DTensors and the model
+code runs on them (inside ``meshed``). Where DTensor has no sharding
+strategy for an op, or cannot take its operands' layout, the call site
+goes through ``on_replicated``, which gathers its operands to
+``Replicate()`` first; the dry run reckons each site's all-gather
+(``launch.dryrun.reckon_collectives``). The sites:
+
+  * ``models/moe.py::moe_apply_dispatch``, the expert slots
+    (``dispatch_slots``: ``aten.searchsorted`` has no strategy), the
+    expert buffer (``index_add`` of the routed rows) and the rows' way
+    back (indexing by the slots), whose forward and backward torch 2.11
+    miscounts against a batch-split operand;
+  * ``models/rwkv.py::_ddlerp``, the reshape of the five mixing loras'
+    output (B, S, 5 x lora) to (B, S, 5, lora), whose last dim DTensor
+    may split over "model" unevenly for the unflatten.
+
+A computation that is independent along the dims it splits (the
+attention core for each batch row and head, the rwkv recurrence and the
+mamba scan for each batch row and head or channel) runs on each rank's
+shards through ``on_shards``: no communication, and none of DTensor's
+propagation inside (torch 2.11's refuses to flatten two split dims).
+The embedding lookup in a vocab-split table is ``vocab_lookup``: each
+rank looks up the tokens of its vocab range, and one all-reduce of the
+(B_loc, S, d) rows over the vocab split sums them. The cross-entropy over
+vocab-split logits is ``vocab_nll``: three (B_loc, S) all-reduces, the
+logits never gathered.
+``write_index`` writes one decode position into a cache in place; on a
+DTensor cache, into the local shard that holds the position.
 """
 
 from __future__ import annotations
@@ -155,17 +184,242 @@ class Builder:
 
 class Sharder:
     """The model code's sharding hook: ``shd(x, ("act_batch", ...))``
-    marks where an activation's layout matters. A no-op; a mesh is not
-    ported yet (ROADMAP 6e)."""
+    marks where an activation's layout matters, the counterpart of the
+    reference's ``with_sharding_constraint``.
+
+    A no-op unless constructed with (mesh, rules). With a
+    ``torch.distributed.device_mesh.DeviceMesh`` and a rule table, ``x`` is
+    redistributed to the placements of ``spec_for(axes, rules, mesh,
+    x.shape)``; a plain tensor is taken as replicated over the mesh, as
+    ``implicit_replication`` takes the plain tensors a meshed step makes
+    (positions, masks, fresh caches), which the step entry points enter
+    (``meshed``).
+    """
 
     def __init__(self, mesh=None, rules=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Sharder with a mesh: logical sharding is not ported yet "
-                "(ROADMAP 6e)")
+        self.mesh = mesh
+        self.rules = rules
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None and self.rules is not None
 
     def __call__(self, x: Tensor, axes: Tuple[Optional[str], ...]) -> Tensor:
+        if not self.active:
+            return x
+        from repro_torch.sharding.logical import placements, spec_for
+
+        spec = spec_for(axes, self.rules, self.mesh, x.shape)
+        return as_dtensor(x, self.mesh).redistribute(
+            self.mesh, placements(spec, self.mesh))
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def as_dtensor(x: Tensor, mesh):
+    """``x`` if it is a DTensor, else ``x`` replicated over ``mesh``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(x, DTensor):
         return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def meshed(shd: "Sharder"):
+    """The context a meshed step runs in: ``implicit_replication`` when
+    ``shd`` has a mesh (plain tensors the step makes mix with DTensors as
+    replicated ones), else nothing."""
+    import contextlib
+
+    if not shd.active:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def on_replicated(shd: "Sharder", fn: Callable, *args):
+    """``fn(*args)`` at a site whose op has no DTensor sharding strategy,
+    or cannot take its operands' sharding: with a mesh, every DTensor
+    operand is gathered to ``Replicate()`` and ``fn`` runs on the local
+    tensors; its output comes back as a replicated DTensor (autograd flows
+    through both conversions). This is what the partitioner does
+    with an op it cannot split. Without a mesh it is ``fn(*args)``."""
+    if not shd.active:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    rep = [Replicate()] * shd.mesh.ndim
+    local = [a.redistribute(shd.mesh, rep).to_local()
+             if isinstance(a, DTensor) else a for a in args]
+    return DTensor.from_local(fn(*local), shd.mesh, rep, run_check=False)
+
+
+def on_shards(shd: "Sharder", fn: Callable, in_axes, out_like, *args):
+    """``fn`` on this rank's shards, for a computation that is independent
+    along the dims it splits (attention for each batch row and head, a
+    recurrence for each batch row and channel): each operand is laid out
+    by its logical axes in ``in_axes`` (``spec_for`` on its own shape) and
+    ``fn`` gets its local shard; output ``j`` takes the layout of operand
+    ``out_like[j]`` (an int: one output). No communication beyond laying
+    the operands out, and no DTensor propagation inside ``fn``. A
+    replicated operand's gradient is partial over the mesh axes the
+    outputs split (each rank adds its rows' part). Without a mesh it is
+    ``fn(*args)``."""
+    if not shd.active:
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial
+
+    from repro_torch.sharding.logical import placements, spec_for
+
+    mesh = shd.mesh
+    lay = [placements(spec_for(axes, shd.rules, mesh, a.shape), mesh)
+           for axes, a in zip(in_axes, args)]
+    single = isinstance(out_like, int)
+    out_lay = [lay[i] for i in ((out_like,) if single else out_like)]
+    split = {m for pl in out_lay for m, p in enumerate(pl) if p.is_shard()}
+    local = []
+    for a, pl in zip(args, lay):
+        grad = [Partial() if m in split and not p.is_shard() else p
+                for m, p in enumerate(pl)]
+        local.append(as_dtensor(a, mesh).redistribute(mesh, pl).to_local(
+            grad_placements=grad))
+    out = fn(*local)
+    outs = tuple(DTensor.from_local(t, mesh, pl, run_check=False)
+                 for t, pl in zip((out,) if single else out, out_lay))
+    return outs[0] if single else outs
+
+
+def vocab_lookup(shd: "Sharder", table: Tensor, tokens: Tensor) -> Tensor:
+    """``table[tokens]``: rows of a (V, d) table for (B, S) tokens. Under a
+    mesh, a vocab-parallel lookup: the table is laid out split along its
+    vocab as the rules split "vocab" (whole along d), the tokens as
+    ("act_batch", "act_seq"); each rank looks up the tokens that fall in
+    its vocab range and zeroes the rest, and one all-reduce of the
+    (B_loc, S, d) rows over the vocab split sums them. A mesh axis that
+    splits the tokens keeps the table whole along it. The table's
+    gradient is partial over the tokens' split; the rows' gradient comes
+    back through the all-reduce unchanged (it is replicated)."""
+    if not shd.active:
+        return table[tokens.long()]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from repro_torch.sharding.logical import placements, spec_for
+
+    mesh = shd.mesh
+    tok_lay = placements(spec_for(("act_batch", "act_seq"), shd.rules, mesh,
+                                  tokens.shape), mesh)
+    vocab_lay = placements(spec_for(("vocab", None), shd.rules, mesh,
+                                    table.shape), mesh)
+    table_lay = [Shard(0) if v.is_shard() and not t.is_shard()
+                 else Replicate() for v, t in zip(vocab_lay, tok_lay)]
+    grad = [Partial() if t.is_shard() else p
+            for p, t in zip(table_lay, tok_lay)]
+    placed = as_dtensor(table, mesh).redistribute(mesh, table_lay)
+    start = shard_start(placed, 0)
+    local = placed.to_local(grad_placements=grad)
+    tok = as_dtensor(tokens, mesh).redistribute(
+        mesh, tok_lay).to_local().long() - start
+    inside = (tok >= 0) & (tok < local.shape[0])
+    rows = local[tok.clamp(0, local.shape[0] - 1)].masked_fill(
+        ~inside[..., None], 0)
+    partial = [Partial() if p.is_shard() else t
+               for p, t in zip(table_lay, tok_lay)]
+    summed = [Replicate() if p.is_partial() else p for p in partial]
+    return DTensor.from_local(rows, mesh, partial,
+                              run_check=False).redistribute(mesh, summed)
+
+
+def vocab_nll(shd: "Sharder", logits: Tensor, labels: Tensor) -> Tensor:
+    """-log softmax(logits)[labels] in float32: (B, S, V) logits, (B, S)
+    labels in [0, V). Under a mesh, a vocab-parallel cross-entropy: the
+    logits are laid out as ("act_batch", "act_seq", "act_vocab"), each
+    rank works on its vocab shard, and three (B_loc, S) float32
+    all-reduces over the vocab split give the max (no gradient), the
+    softmax's sum and the labels' logits. The logits are never
+    gathered."""
+    if not shd.active:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from repro_torch.sharding.logical import placements, spec_for
+
+    mesh = shd.mesh
+    lay = placements(spec_for(("act_batch", "act_seq", "act_vocab"),
+                              shd.rules, mesh, logits.shape), mesh)
+    rows = [p if p.is_shard() and p.dim < 2 else Replicate() for p in lay]
+    placed = as_dtensor(logits, mesh).redistribute(mesh, lay)
+    start = shard_start(placed, 2)
+    x = placed.to_local(grad_placements=lay).float()
+    lab = as_dtensor(labels, mesh).redistribute(
+        mesh, rows).to_local().long() - start
+    inside = (lab >= 0) & (lab < x.shape[-1])
+
+    def over_vocab(t: Tensor, op: str = "sum") -> Tensor:
+        part = [Partial(op) if p.is_shard() and p.dim == 2 else r
+                for p, r in zip(lay, rows)]
+        return DTensor.from_local(t, mesh, part, run_check=False
+                                  ).redistribute(mesh, rows).to_local(
+                                      grad_placements=rows)
+
+    m = over_vocab(x.detach().amax(-1), "max")
+    total = over_vocab(torch.exp(x - m[..., None]).sum(-1))
+    picked = over_vocab(torch.gather(
+        x, -1, lab.clamp(0, x.shape[-1] - 1)[..., None])[..., 0].masked_fill(
+            ~inside, 0))
+    return DTensor.from_local(torch.log(total) + m - picked, mesh, rows,
+                              run_check=False)
+
+
+def shard_start(x, dim: int) -> int:
+    """The global index of the first element of this rank's shard of
+    DTensor ``x`` along ``dim`` (even shards, mesh axes major to minor,
+    as ``sharding.logical.placements`` lays them out)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = x.device_mesh
+    piece, count = 0, 1
+    for m, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            piece = piece * mesh.size(m) + mesh.get_local_rank(m)
+            count *= mesh.size(m)
+    if x.shape[dim] % count:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} is not split "
+                         f"evenly over {count} shards")
+    return piece * (x.shape[dim] // count)
+
+
+def write_index(cache: Tensor, dim: int, index: int, value: Tensor) -> None:
+    """``cache.select(dim, index).copy_(value)``, in place. On a DTensor
+    cache the write lands on the local shard that holds position
+    ``index`` (a cache sharded along its sequence, as the decode rules
+    shard it, keeps each position on one rank of the axis); ``value`` is
+    first laid out as the cache is, without ``dim``."""
+    if not is_dtensor(cache):
+        cache.select(dim, index).copy_(value)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    lay = []
+    for p in cache.placements:
+        if isinstance(p, Shard) and p.dim == dim:
+            lay.append(Replicate())
+        elif isinstance(p, Shard) and p.dim > dim:
+            lay.append(Shard(p.dim - 1))
+        else:
+            lay.append(p)
+    local_value = as_dtensor(value, mesh).redistribute(mesh, lay).to_local()
+    local = cache.to_local()
+    start = shard_start(cache, dim)
+    if start <= index < start + local.shape[dim]:
+        local.select(dim, index - start).copy_(local_value)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,8 @@ from repro_torch.models.layers import (
     torch_dtype,
     tree_leaves_with_path,
     tree_map,
+    vocab_lookup,
+    vocab_nll,
 )
 from repro_torch.models.mlp import init_mlp, mlp_apply
 
@@ -230,15 +232,22 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def _embed(params: Any, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return params["embed"][tokens.long()].to(torch_dtype(cfg.activation_dtype))
+def _embed(params: Any, cfg: ModelConfig, tokens: Tensor,
+           shd: Sharder) -> Tensor:
+    return vocab_lookup(shd, params["embed"], tokens).to(
+        torch_dtype(cfg.activation_dtype))
 
 
-def _logits(params: Any, cfg: ModelConfig, x: Tensor) -> Tensor:
+def _logits(params: Any, cfg: ModelConfig, x: Tensor,
+            shd: Sharder) -> Tensor:
+    # under a mesh the head is first laid out whole along d (its FSDP
+    # gather), split along the vocab as the rules split it
     x = apply_norm(params["final_norm"], x, cfg.norm_type, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return einsum("bsd,vd->bsv", x, params["embed"].to(x.dtype))
-    return einsum("bsd,dv->bsv", x, params["lm_head"].to(x.dtype))
+        w = shd(params["embed"], ("vocab", None))
+        return einsum("bsd,vd->bsv", x, w.to(x.dtype))
+    w = shd(params["lm_head"], (None, "vocab"))
+    return einsum("bsd,dv->bsv", x, w.to(x.dtype))
 
 
 def forward(
@@ -252,7 +261,7 @@ def forward(
     """tokens: (B,S) int32 -> (logits (B,S,V), aux_loss, cache|None)."""
     shd = shd or Sharder()
     b_, s = tokens.shape
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, shd)
     if frontend_embeds is not None and cfg.frontend != "none":
         f = frontend_embeds.shape[1]
         x = torch.cat([frontend_embeds.to(x.dtype), x[:, f:, :]], dim=1)
@@ -270,7 +279,7 @@ def forward(
         cache_list.append(c)
     x, aux = carry
     caches = _stack(cache_list) if return_cache else None
-    logits = shd(_logits(params, cfg, x), ("act_batch", "act_seq",
+    logits = shd(_logits(params, cfg, x, shd), ("act_batch", "act_seq",
                                           "act_vocab"))
     return logits, aux, caches
 
@@ -318,22 +327,25 @@ def _decode_channel(spec, p, x, cfg, shd, state):
 
 def _decode_group_body(cfg, shd, cur_index, x, group_params, cache):
     """One group's layers for the new token; each mixer writes its cache
-    entry in place."""
+    entry in place. Each block's output is laid out as the residual
+    stream before it is added (under a mesh: the tensor-parallel
+    all-reduce of a row-parallel projection's partial sums)."""
+    out_axes = ("act_batch", None, "act_embed")
     for k, spec in enumerate(cfg.layer_pattern):
         gp = group_params[f"p{k}"]
         c = cache[f"p{k}"]
         h = apply_norm(gp["norm1"], x, cfg.norm_type, cfg.norm_eps)
-        mix_out = _decode_mixer(spec, gp["mixer"], h, cfg, shd,
-                                c["mixer"], cur_index)
+        mix_out = shd(_decode_mixer(spec, gp["mixer"], h, cfg, shd,
+                                    c["mixer"], cur_index), out_axes)
         if cfg.parallel_block:
-            ch_out = _decode_channel(spec, gp["channel"], h, cfg, shd,
-                                     c["channel"])
+            ch_out = shd(_decode_channel(spec, gp["channel"], h, cfg, shd,
+                                         c["channel"]), out_axes)
             x = x + mix_out + ch_out
         else:
             x = x + mix_out
             h2 = apply_norm(gp["norm2"], x, cfg.norm_type, cfg.norm_eps)
-            ch_out = _decode_channel(spec, gp["channel"], h2, cfg, shd,
-                                     c["channel"])
+            ch_out = shd(_decode_channel(spec, gp["channel"], h2, cfg, shd,
+                                         c["channel"]), out_axes)
             x = x + ch_out
     return x
 
@@ -353,7 +365,7 @@ def decode_step(
     runs."""
     shd = shd or Sharder()
     cur_index = int(cur_index)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, shd)
     if cfg.pos_embed == "sinusoidal":
         pos = torch.full((x.shape[0], 1), cur_index, dtype=torch.int32,
                          device=x.device)
@@ -366,7 +378,7 @@ def decode_step(
             gp = quant.dequantize_group(
                 gp, _group(params["layers_scale"], i), act)
         x = _decode_group_body(cfg, shd, cur_index, x, gp, _group(cache, i))
-    return _logits(params, cfg, x)[:, 0, :], cache
+    return _logits(params, cfg, x, shd)[:, 0, :], cache
 
 
 # ---------------------------------------------------------------------------
@@ -460,12 +472,10 @@ def loss_fn(
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Next-token CE (f32) + MoE aux. labels: (B,S) int32, -1 = ignore."""
     logits, aux, _ = forward(params, cfg, tokens, shd, frontend_embeds)
-    logp = torch.log_softmax(logits.float(), dim=-1)
     valid = labels >= 0
     if loss_mask is not None:
         valid = valid & (loss_mask != 0)
-    safe = torch.where(valid, labels, 0).long()
-    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    nll = vocab_nll(shd or Sharder(), logits, torch.where(valid, labels, 0))
     denom = torch.clamp(valid.sum(dtype=torch.int32), min=1)
     ce = torch.where(valid, nll, 0.0).sum() / denom
     loss = ce + aux_coeff * aux

@@ -18,9 +18,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import Builder, Sharder, einsum, groupnorm_heads
+from repro_torch.models.layers import (
+    Builder,
+    Sharder,
+    einsum,
+    groupnorm_heads,
+    on_replicated,
+    on_shards,
+)
 
 Tensor = torch.Tensor
+
+# the recurrence's layout under a mesh: each batch row and head runs on
+# its own (r/k/v/w (B,S,H,K), the bonus (H,K), the state (B,H,K,V))
+STEP_AXES = ("act_batch", None, "act_heads", None)
+HEAD_AXES = ("act_heads", None)
+STATE_AXES = ("act_batch", "act_heads", None, None)
 
 _MIX_NAMES = ("w", "k", "v", "r", "g")
 
@@ -67,12 +80,14 @@ def init_rwkv_channel(b: Builder, cfg) -> dict:
     }
 
 
-def _ddlerp(p: dict, x: Tensor, sx: Tensor) -> list:
+def _ddlerp(p: dict, x: Tensor, sx: Tensor, shd: Sharder) -> list:
     """Data-dependent token-shift interpolation -> one mixed x per
     quantity."""
     xx = x + sx * p["mu_x"]
     z = torch.tanh(einsum("bsd,dr->bsr", xx, p["mix_w1"]))
-    z = z.reshape(*z.shape[:-1], len(_MIX_NAMES), -1)        # (B,S,5,lr)
+    # (B,S,5,lr): the five loras' outputs need not split over the mesh
+    z = on_replicated(shd, lambda t: t.reshape(
+        *t.shape[:-1], len(_MIX_NAMES), -1), z)
     adj = einsum("bsnr,nrd->bnsd", z, p["mix_w2"])           # (B,5,S,d)
     return [x + sx * (p["mu"][i] + adj[:, i])
             for i in range(len(_MIX_NAMES))]
@@ -100,9 +115,10 @@ def _decay(p: dict, xw: Tensor) -> Tensor:
     return torch.exp(-torch.exp(dec.float()))
 
 
-def _project(p: dict, x: Tensor, sx: Tensor, h: int, kd: int):
+def _project(p: dict, x: Tensor, sx: Tensor, h: int, kd: int,
+             shd: Sharder):
     b_, s, _ = x.shape
-    xw, xk, xv, xr, xg = _ddlerp(p, x, sx)
+    xw, xk, xv, xr, xg = _ddlerp(p, x, sx, shd)
     r = einsum("bsd,de->bse", xr, p["w_r"]).reshape(b_, s, h, kd)
     k = einsum("bsd,de->bse", xk, p["w_k"]).reshape(b_, s, h, kd)
     v = einsum("bsd,de->bse", xv, p["w_v"]).reshape(b_, s, h, kd)
@@ -119,14 +135,15 @@ def rwkv_time_forward(p: dict, x: Tensor, cfg, shd: Sharder,
     prev = (state["shift"][:, None, :] if state
             else x.new_zeros((b_, 1, d)))
     sx = torch.cat([prev, x[:, :-1, :]], dim=1) - x
-    r, k, v, g, w = _project(p, x, sx, h, kd)
+    r, k, v, g, w = _project(p, x, sx, h, kd, shd)
     r = shd(r, ("act_batch", "act_seq", "act_heads", None))
     k = shd(k, ("act_batch", "act_seq", "act_heads", None))
     s0 = (state["wkv"] if state
           else torch.zeros((b_, h, kd, kd), dtype=torch.float32,
                            device=x.device))
-    out, s_last = _time_mix_scan(r.float(), k.float(), v.float(), w,
-                                 p["bonus_u"].float(), s0)
+    out, s_last = on_shards(
+        shd, _time_mix_scan, (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
+        (0, 5), r.float(), k.float(), v.float(), w, p["bonus_u"].float(), s0)
     out = groupnorm_heads(out, p["ln_scale"], p["ln_bias"], cfg.norm_eps)
     out = out.reshape(b_, s, d).to(x.dtype) * g
     y = einsum("bse,ed->bsd", out, p["w_o"])
@@ -140,13 +157,12 @@ def rwkv_time_decode(p: dict, x: Tensor, cfg, shd: Sharder, state: dict
     b_, _, d = x.shape
     h, kd = num_heads_of(cfg), cfg.rwkv_head_dim
     sx = state["shift"][:, None, :] - x
-    r, k, v, g, w = _project(p, x, sx, h, kd)
-    r, k, v, w, g = r[:, 0], k[:, 0], v[:, 0], w[:, 0], g[:, 0]
-    st = state["wkv"]
-    kv = k.float()[..., :, None] * v.float()[..., None, :]
-    out = torch.einsum("bhk,bhkv->bhv", r.float(),
-                       st + p["bonus_u"].float()[..., None] * kv)
-    st = w[..., None] * st + kv
+    r, k, v, g, w = _project(p, x, sx, h, kd, shd)
+    out, st = on_shards(
+        shd, _time_mix_scan, (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
+        (0, 5), r.float(), k.float(), v.float(), w, p["bonus_u"].float(),
+        state["wkv"])
+    out, g = out[:, 0], g[:, 0]
     out = groupnorm_heads(out, p["ln_scale"], p["ln_bias"], cfg.norm_eps)
     out = (out.reshape(b_, d).to(x.dtype) * g)[:, None, :]
     y = einsum("bse,ed->bsd", out, p["w_o"])

@@ -17,9 +17,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import Builder, Sharder, einsum
+from repro_torch.models.layers import Builder, Sharder, einsum, on_shards
 
 Tensor = torch.Tensor
+
+# under a mesh the mixer between its projections runs on each rank's batch
+# rows: (B, S, X) and the (B, di, N) state split by batch only
+ROW_AXES = ("act_batch", None, None)
 
 
 def d_inner_of(cfg) -> int:
@@ -92,23 +96,65 @@ def _dt_b_c(p: dict, xg: Tensor):
     return dt, Bm, Cm, A
 
 
+# the mixer's weights between its two projections, handed to the per-row
+# computation (replicated under a mesh)
+_INNER = ("conv_w", "conv_b", "w_x_dt", "w_dt", "dt_bias", "w_B", "w_C",
+          "A_log", "D")
+
+
+def _inner_axes(p: dict) -> tuple:
+    return tuple((None,) * p[k].dim() for k in _INNER)
+
+
+def _mixer_rows(p: dict, xz: Tensor, h0: Tensor, conv0: Optional[Tensor],
+                keep: int, dtype: torch.dtype):
+    """The mixer between its projections on whole rows: xz (B,S,2di) ->
+    (y (B,S,di), the last state h (B,di,N), the conv state (B,keep,di));
+    ``conv0`` the decode's conv state (None in train/prefill); the scan's
+    float32 output is cast to ``dtype``, the mixer input's."""
+    xp, z = torch.chunk(xz, 2, dim=-1)
+    if conv0 is None:
+        s = xp.shape[1]
+        conv = (xp[:, s - keep:, :] if s >= keep
+                else torch.nn.functional.pad(xp, (0, 0, keep - s, 0)))
+        xc = _causal_conv(xp, p["conv_w"], p["conv_b"])
+    else:
+        win = torch.cat([conv0.to(xp.dtype), xp], dim=1)     # (B,dc,di)
+        conv = win[:, 1:, :]
+        xc = (einsum("bci,ci->bi", win, p["conv_w"]) + p["conv_b"])[:, None]
+    xg = torch.nn.functional.silu(xc)
+    dt, Bm, Cm, A = _dt_b_c(p, xg)
+    y, h = selective_scan(dt, Bm, Cm, xg.float(), A, h0)
+    y = y.to(dtype) + p["D"] * xg
+    return y * torch.nn.functional.silu(z), h, conv
+
+
+def _rows(shd: Sharder, p: dict, xz: Tensor, h0: Tensor,
+          conv0: Optional[Tensor], keep: int, dtype: torch.dtype):
+    """``_mixer_rows`` on each rank's batch rows under a mesh (the weights
+    between the projections gathered whole), else as it is."""
+    weights = [p[k] for k in _INNER]
+    state = () if conv0 is None else (conv0,)
+
+    def rows(xz_, h_, *rest):
+        inner = dict(zip(_INNER, rest[:len(_INNER)]))
+        return _mixer_rows(inner, xz_, h_, rest[len(_INNER)] if state
+                           else None, keep, dtype)
+
+    axes = (ROW_AXES, ROW_AXES, *_inner_axes(p), *((ROW_AXES,) * len(state)))
+    return on_shards(shd, rows, axes, (0, 1, 0), xz, h0, *weights, *state)
+
+
 def mamba_forward(p: dict, x: Tensor, cfg, shd: Sharder
                   ) -> Tuple[Tensor, dict]:
     """Train/prefill. x: (B,S,D). Returns (out, state) for decode."""
-    b_, s, _ = x.shape
     xz = einsum("bsd,de->bse", x, p["w_in"])
     xz = shd(xz, ("act_batch", "act_seq", "act_mlp"))
-    xp, z = torch.chunk(xz, 2, dim=-1)
-    xc = _causal_conv(xp, p["conv_w"], p["conv_b"])
-    xg = torch.nn.functional.silu(xc)
-    dt, Bm, Cm, A = _dt_b_c(p, xg)
-    y, h_last = selective_scan(dt, Bm, Cm, xg.float(), A)
-    y = y.to(x.dtype) + p["D"] * xg
-    y = y * torch.nn.functional.silu(z)
+    h0 = torch.zeros((x.shape[0], p["A_log"].shape[0], p["A_log"].shape[1]),
+                     dtype=torch.float32, device=x.device)
+    y, h_last, conv = _rows(shd, p, xz, h0, None, cfg.ssm_conv_dim - 1,
+                            x.dtype)
     out = einsum("bsi,id->bsd", y, p["w_out"])
-    keep = cfg.ssm_conv_dim - 1
-    conv = (xp[:, s - keep:, :] if s >= keep
-            else torch.nn.functional.pad(xp, (0, 0, keep - s, 0)))
     state = {"h": h_last, "conv": conv}
     return shd(out, ("act_batch", "act_seq", "act_embed")), state
 
@@ -118,16 +164,7 @@ def mamba_decode(p: dict, x: Tensor, cfg, shd: Sharder, state: dict
     """One-token step. x: (B,1,D); state: h (B,di,N) float32, conv
     (B,dc-1,di). Returns (out, new state)."""
     xz = einsum("bsd,de->bse", x, p["w_in"])
-    xp, z = torch.chunk(xz, 2, dim=-1)                      # (B,1,di)
-    win = torch.cat([state["conv"].to(xp.dtype), xp], dim=1)  # (B,dc,di)
-    xc = einsum("bci,ci->bi", win, p["conv_w"]) + p["conv_b"]
-    xg = torch.nn.functional.silu(xc)[:, None, :]             # (B,1,di)
-    dt, Bm, Cm, A = _dt_b_c(p, xg)
-    a = torch.exp(dt[:, 0, :, None] * A)                      # (B,di,N)
-    bx = (dt[:, 0] * xg[:, 0].float())[..., None] * Bm[:, 0, None, :]
-    h = a * state["h"] + bx
-    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0])[:, None, :].to(x.dtype)
-    y = y + p["D"] * xg
-    y = y * torch.nn.functional.silu(z)
+    y, h, conv = _rows(shd, p, xz, state["h"], state["conv"],
+                       cfg.ssm_conv_dim - 1, x.dtype)
     out = einsum("bsi,id->bsd", y, p["w_out"])
-    return out, {"h": h, "conv": win[:, 1:, :]}
+    return out, {"h": h, "conv": conv}

@@ -35,9 +35,10 @@ def _device_of(params: Any) -> torch.device:
 
 
 def adamw_init(params: Any) -> OptState:
-    """Zeroed float32 moments beside the parameters, step 0."""
+    """Zeroed float32 moments beside the parameters (laid out as each
+    parameter is, a DTensor's placements included), step 0."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     return OptState(
         step=torch.zeros((), dtype=torch.int32, device=_device_of(params)),

@@ -20,7 +20,9 @@ weights and the two serving legs, and the LM CLI and example with
 itself, gradient accumulation, ``TrainLoop`` with its checkpoint and
 resume, on a dataset of 4 patterns, which a 256-token vocabulary can
 learn in 20 steps) and runs the train CLI and example with ``--device
-cpu``.
+cpu``. Phase 10 reckons the LM dry run and runs the meshed paths on a
+one-rank gloo group's (1, 1) CPU mesh, on the reduced configs, and the
+gloo rehearsal's four processes.
 """
 
 import json
@@ -57,6 +59,8 @@ REHEARSAL = textwrap.dedent("""
     torch.cuda.max_memory_allocated = lambda *a: 0
     torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.memory_stats = lambda *a: {}
+    torch.cuda.get_device_properties = lambda *a: type(
+        "Props", (), {"total_memory": 80 * 2**30})
 
     class Event:
         def __init__(self, enable_timing=False):
@@ -99,6 +103,7 @@ REHEARSAL = textwrap.dedent("""
     cs.LM_CHECK_PROMPT, cs.LM_CHECK_NEW = 16, 8
     cs.LM_PROMPT, cs.LM_NEW = 16, 8
     cs.TRAIN_PATTERNS, cs.TRAIN_SEQ = 4, 64   # phase 9 on the reduced qwen2
+    cs.SHARD_BACKEND = "gloo"       # phase 10's one-rank group on the CPU
     import repro_torch.sharding as shard
     every_device = shard.make_batch_mesh
     shard.make_batch_mesh = lambda axis_name="data", devices=None: (
@@ -330,6 +335,30 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert len(train["loop"]["step_ms"]) == 20
     assert (train["float32"]["param_max_abs"]
             <= train["float32"]["param_bound"])
+    assert "shard: the LM dry run reckoned 64 cells, every one ok" in (
+        out.stdout)
+    assert ("shard: gloo process group of one rank, make_host_mesh() = "
+            "(1, 1) ('data', 'model') on cpu") in out.stdout
+    for line in ("shard [qwen2-0.5b x2 float32]: on the (1, 1) mesh",
+                 "ServeEngine(mesh=...) on the (1, 1) mesh",
+                 "greedy tokens equal to the unmeshed engine's",
+                 "moe_impl=alltoall on the (1, 1) mesh takes dispatch",
+                 "one meshed train step against the unmeshed one",
+                 "the meshed paths launched none of the nine kernels"):
+        assert line in out.stdout, line
+    assert "shard: the gloo rehearsal (4 processes, mesh (2, 2)" in (
+        out.stdout)
+    shard = json.loads(next(line for line in lines
+                            if line.startswith("shard: {"))[7:])
+    assert shard["dryrun"]["cells"] == 64
+    assert shard["float32"]["forward_max_abs"] <= shard["float32"]["bound"]
+    assert (shard["serve"]["param_bytes_placed"]
+            == shard["serve"]["param_bytes_reckoned"])
+    assert shard["moe_path"] == "dispatch"
+    assert shard["train_param_max_abs"] <= shard["train_param_bound"]
+    assert shard["gloo"]["a2a_grad_rel"] <= 1e-5
+    assert all(r["equal"] for case, r in shard["gloo"]["collectives"].items()
+               if not case.startswith("train")), shard["gloo"]
     split = next(k for k in kernels if k["name"] == "ychg_fused_splith")
     assert [t["shape"] for t in split["timings"]] == [
         [1, 120, 120], [8, 64, 64], [1, 320, 64]]

@@ -35,12 +35,6 @@ ARCHS = jconfigs.list_archs()
 # What the port does not have yet, by module: None for a whole module,
 # else the public names it lacks, each with the ROADMAP item that ports it.
 NOT_PORTED = {
-    "repro.launch.analytic": (None, "Queue A 6e"),
-    "repro.launch.mesh": (None, "Queue A 6e"),
-    "repro.sharding.logical": (None, "Queue A 6e"),
-    "repro.sharding": ({"DECODE_RULES", "TRAIN_RULES", "make_rules",
-                        "param_shardings", "spec_for", "tree_shardings"},
-                       "Queue A 6e"),
     # jax.jit of core.ychg.analyze: no counterpart (repro_torch.core says so)
     "repro.core": ({"analyze_jit"}, "none: a jax.jit wrapper"),
 }

@@ -78,10 +78,18 @@ def test_ychg_cells_on_the_card_route_plan(tmp_path, monkeypatch):
     assert big["bound_ms"] == pytest.approx(1.0542, abs=1e-4)
 
 
-def test_main_without_ychg_names_the_lm_slice():
+def test_main_without_ychg_names_the_lm_slice(tmp_path, capsys):
+    """Without ``--ychg`` the command reckons the LM cells (it exited
+    naming Queue A 6 until the LM sweep was ported): one cell here."""
     with pytest.raises(SystemExit) as exc:
-        dryrun.main([])
-    assert exc.value.code and "Queue A 6" in str(exc.value.code)
+        dryrun.main(["--device", "cpu", "--arch", "qwen2-0.5b", "--shape",
+                     "train_4k", "--mesh", "single", "--out",
+                     str(tmp_path)])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "[OK] qwen2-0.5b x train_4k x single (reckoned)" in out
+    rec = _records(tmp_path)["qwen2-0.5b__train_4k__single.json"]
+    assert rec["ok"] and rec["reckoned"] and rec["chips"] == 256
 
 
 def test_main_ychg_on_the_cpu(tmp_path, capsys):

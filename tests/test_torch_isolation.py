@@ -41,6 +41,8 @@ def test_port_imports_no_jax_and_no_repro():
                 "repro_torch.fleet.worker",
                 "repro_torch.launch.compilecache",
                 "repro_torch.launch.dryrun", "repro_torch.launch.roofline",
+                "repro_torch.launch.mesh", "repro_torch.launch.analytic",
+                "repro_torch.sharding.logical",
                 "repro_torch.data.pipeline", "repro_torch.core.regions",
                 "repro_torch.core.api", "repro_torch.engine.lowering",
                 "repro_torch.kernels.plan",

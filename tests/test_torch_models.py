@@ -252,15 +252,19 @@ def test_int8_trees_match_on_meta(name):
 
 
 def test_int8_weights_and_a_mesh_raise():
-    """int8 weights now build and run (the tests below); a ``Sharder``
-    with a mesh still raises, naming ROADMAP 6e."""
+    """int8 weights now build and run (the tests below). A ``Sharder``
+    took no mesh until the sharding slice (it raised, naming ROADMAP 6e);
+    now, as the reference's, it is a no-op unless it has both a mesh and
+    rules, and with both it lays activations out on the mesh
+    (``tests/test_torch_sharding_dist.py``)."""
     _, tc = _pair({})
     q = tc.scaled(weight_quant="int8")
     assert "layers_scale" in TM.abstract_params(q)
     tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP 6e"):
-        Sharder(mesh=object(), rules={})
     assert Sharder()(tokens, ("act_batch", None)) is tokens
+    assert Sharder(mesh=object())(tokens, ("act_batch", None)) is tokens
+    assert not Sharder(mesh=object()).active
+    assert Sharder(mesh=object(), rules={}).active
 
 
 def test_init_params_fan_in_counts_the_group_axis():
