@@ -187,12 +187,24 @@ each of which fails the run (non-zero exit, no result line) when it fails:
      exiting 0;
   9. training, every launch counter set to 0 just before (training
      launches none of the nine kernels), TF32 off: qwen2-0.5b at full
-     width and two layers in float32, one ``make_train_step`` on the card
-     against the CPU from the same weights and batch (loss and grad_norm
-     within 1e-4 relative, the updated parameters within half the step's
-     lr), then ``grad_accum=2`` against one batch of twice the rows on the
-     card; qwen2-0.5b at full depth and its own dtypes (bfloat16
-     parameters, float32 moments): ``TrainLoop`` over ``TokenDataset``,
+     width and two layers in float32, one ``make_train_step`` at remat
+     "none", "dots" and "full" on the card from the same weights and
+     batch, bit for bit under deterministic algorithms, and at "full"
+     against the CPU (loss and grad_norm within 1e-4 relative, the
+     updated parameters within half the step's lr), then ``grad_accum=2``
+     against one batch of twice the rows on the card; the same three
+     remats bit for bit and "full" against the CPU on jamba's smoke
+     config (the Mamba chunk checkpoints; jamba at full width does not
+     train on one card); qwen2-0.5b at full depth and its own dtypes
+     (bfloat16 parameters, float32 moments) at each remat: step ms (CUDA
+     events, median), ``max_memory_allocated`` over loss and gradients
+     alone and over the whole step; rwkv6-3b at full width in bfloat16,
+     ``ssm_chunk`` 16, batch 8 x 256, three steps at remat "full" and
+     "none" at the largest depth that fits (step ms, both peaks, the
+     loss), beside the bytes the step-by-step recurrence would keep
+     without the chunk checkpoints (its own saved tensors, one step
+     measured); qwen2-0.5b at full depth, its config's remat "full":
+     ``TrainLoop`` over ``TokenDataset``,
      batch 8, seq 256, 20 steps with a checkpoint at step 10, the loss at
      step 20 below step 1's, step ms (CUDA events, median) beside the
      bound 6 x parameters x tokens over 989 TFLOP/s, tokens/s and
@@ -240,8 +252,10 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import glob
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1477,8 +1491,9 @@ def lm_phase(np, torch, card: str) -> dict:
 
 
 # phase 9: training. qwen2-0.5b at full width: two layers in float32 (TF32
-# off), one train step on the card against the CPU from the same weights
-# and batch, then grad_accum=2 against one batch of twice the rows on the
+# off), one train step at each remat bit for bit, on the card against the
+# CPU at "full" from the same weights and batch (the same on jamba's smoke
+# config), then grad_accum=2 against one batch of twice the rows on the
 # card; at full depth and its own dtypes (bfloat16 parameters, float32
 # moments) TrainLoop over TokenDataset, batch 8, seq 256, 20 steps with a
 # checkpoint at 10, and a second loop resumed from it; the CLI and the
@@ -1496,6 +1511,18 @@ TRAIN_PATTERNS = 64          # TokenDatasetConfig's default
 # by up to its share of lr in either order of summation)
 TRAIN_REL_BOUND = 1e-4
 TRAIN_PARAM_LR_SHARE = 0.5
+# the remat legs: every remat on qwen2-0.5b x2 float32 and on the jamba
+# smoke config (Mamba's chunk checkpoints), bit for bit; qwen2-0.5b at full
+# depth in bfloat16 at each remat (step ms, peak of loss and gradients, peak
+# of the step), TRAIN_REMAT_STEPS timed steps after one warm-up; rwkv6-3b
+# at full width in bfloat16, batch TRAIN_BATCH x TRAIN_SEQ, at remat full
+# and none, TRAIN_RWKV_STEPS steps each, at the largest depth of
+# TRAIN_RWKV_DEPTHS that fits on the card
+REMATS = ("none", "dots", "full")
+TRAIN_REMAT_STEPS = 3
+TRAIN_RWKV_ARCH, TRAIN_RWKV_STEPS = "rwkv6-3b", 2
+TRAIN_RWKV_DEPTHS = (32, 24, 16, 8)
+TRAIN_HYBRID_ARCH = "jamba-v0.1-52b"
 # H100 SXM tensor-core bfloat16 peak, dense (NVIDIA H100 datasheet)
 BF16_PEAK_FLOPS = 989e12
 TRAIN_CLI = ("--arch", TRAIN_ARCH, "--steps", "20", "--batch", "8", "--seq",
@@ -1514,42 +1541,115 @@ def tree_max_abs(a, b) -> float:
                for path, t in tree_leaves_with_path(a))
 
 
-def train_float32_check(np, torch, card: str) -> dict:
-    """One ``make_train_step`` on the card against the CPU from the same
-    float32 weights and batch (loss, grad_norm, the updated parameters),
-    then ``grad_accum=2`` against one batch of twice the rows on the
-    card."""
-    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
-    from repro_torch.models import count_params, init_params
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms`` while active, as it was
+    before after: a bit-for-bit check of two steps needs each op's bits
+    to repeat (on the CPU, without it, the embedding lookup's backward,
+    an ``index_put`` with accumulation, adds rows in thread order)."""
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def remat_bits_differ(torch, runs: dict) -> list:
+    """(remat, what) for each output of a train step at another remat that
+    is not bit for bit the "none" step's: ``runs`` maps a remat to
+    (parameters, optimiser state, metrics)."""
+    from repro_torch.models.layers import tree_leaves_with_path
+
+    p, o, m = runs["none"]
+    differ = []
+    for remat, (p2, o2, m2) in runs.items():
+        differ += [(remat, k) for k in ("loss", "grad_norm")
+                   if not torch.equal(m[k], m2[k])]
+        for tree, tree2 in ((p, p2), (o.mu, o2.mu), (o.nu, o2.nu)):
+            other = dict(tree_leaves_with_path(tree2))
+            differ += [(remat, "/".join(path))
+                       for path, t in tree_leaves_with_path(tree)
+                       if not torch.equal(t, other[path])]
+    return differ
+
+
+def remat_step_check(np, torch, cfg, batch, label: str, card: str) -> dict:
+    """One ``make_train_step`` of ``cfg`` (float32) at remat "none", "dots"
+    and "full" on the card from the same weights and batch, under
+    deterministic algorithms: loss, grad_norm, the updated parameters and
+    moments bit for bit; then the "full" step on the CPU against the
+    card's within phase 9's float32 bounds."""
+    from repro_torch.models import init_params
     from repro_torch.models.layers import tree_map
     from repro_torch.optim import adamw_init
     from repro_torch.train import make_train_step
 
     t0 = time.perf_counter()
-    cfg = float32_config(TRAIN_ARCH, num_layers=TRAIN_CHECK_LAYERS)
     params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    runs = {}
+    with deterministic(torch):
+        for remat in REMATS:
+            # the schedule's peak at once, so the step moves the parameters
+            step = make_train_step(cfg.scaled(remat=remat), warmup_steps=0)
+            runs[remat] = step(params, adamw_init(params), batch)
+    differ = remat_bits_differ(torch, runs)
+    check(not differ, f"train {label}: the step at another remat differs "
+                      f"from remat=none in {len(differ)} outputs, e.g. "
+                      f"{differ[:4]}")
     host = tree_map(lambda t: t.cpu(), params)
-    batch = TokenDataset(TokenDatasetConfig(
-        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
-        global_batch=2 * TRAIN_CHECK_BATCH)).batch(0)
-    half = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
-    # the schedule's peak at once, so the step moves the parameters
-    step = make_train_step(cfg, warmup_steps=0)
-    p_card, _, m_card = step(params, adamw_init(params), half)
-    p_cpu, _, m_cpu = step(host, adamw_init(host), half)
+    full = cfg.scaled(remat="full")
+    p_cpu, _, m_cpu = make_train_step(full, warmup_steps=0)(
+        host, adamw_init(host), batch)
+    p_card, _, m_card = runs["full"]
     lr = float(m_cpu["lr"])
-    out = {"lr": lr, "param_bound": TRAIN_PARAM_LR_SHARE * lr}
+    out = {"remats": list(REMATS), "bit_equal": True, "lr": lr,
+           "param_bound": TRAIN_PARAM_LR_SHARE * lr}
     for name in ("loss", "grad_norm"):
         a, b = float(m_card[name]), float(m_cpu[name])
         out[f"{name}_rel"] = abs(a - b) / abs(b)
         out[name] = b
         check(out[f"{name}_rel"] <= TRAIN_REL_BOUND,
-              f"train float32: {name} on the card {a} against the CPU {b}")
+              f"train {label}: {name} on the card {a} against the CPU {b}")
     out["param_max_abs"] = tree_max_abs(p_card, p_cpu)
     check(out["param_max_abs"] <= out["param_bound"],
-          f"train float32: updated parameters differ by "
+          f"train {label}: updated parameters differ by "
           f"{out['param_max_abs']} > {out['param_bound']}")
-    del p_cpu, host
+    del params, runs, host, p_cpu, p_card
+    free_card(torch)
+    print(f"train remat [{label}]: one train step at remat none, dots and "
+          f"full on the card from the same weights and batch (deterministic "
+          f"algorithms): loss, grad_norm, parameters and moments bit for bit "
+          f"(max abs 0.0); at full the card against the CPU: loss relative "
+          f"{out['loss_rel']:.3e}, grad_norm {out['grad_norm_rel']:.3e} "
+          f"(bound {TRAIN_REL_BOUND:g}), parameters max abs "
+          f"{out['param_max_abs']:.3e} (bound {out['param_bound']:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    return out
+
+
+def train_float32_check(np, torch, card: str) -> dict:
+    """One ``make_train_step`` on the card against the CPU from the same
+    float32 weights and batch (loss, grad_norm, the updated parameters) at
+    remat "full", the card's step at "none" and "dots" bit for bit the
+    same (``remat_step_check``), then ``grad_accum=2`` against one batch
+    of twice the rows on the card."""
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+    from repro_torch.models import count_params, init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    cfg = float32_config(TRAIN_ARCH, num_layers=TRAIN_CHECK_LAYERS,
+                         remat="full")
+    batch = TokenDataset(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=2 * TRAIN_CHECK_BATCH)).batch(0)
+    half = {k: v[:TRAIN_CHECK_BATCH] for k, v in batch.items()}
+    out = remat_step_check(np, torch, cfg, half,
+                           f"{TRAIN_ARCH} x{TRAIN_CHECK_LAYERS} float32", card)
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    step = make_train_step(cfg, warmup_steps=0)
     whole = step(params, adamw_init(params), batch)
     accum = make_train_step(cfg, warmup_steps=0, grad_accum=2)(
         params, adamw_init(params), batch)
@@ -1563,11 +1663,13 @@ def train_float32_check(np, torch, card: str) -> dict:
     check(out["accum_param_max_abs"] <= out["param_bound"],
           f"train float32: grad_accum=2 parameters differ by "
           f"{out['accum_param_max_abs']} > {out['param_bound']}")
-    del params, p_card, whole, accum
+    del params, whole, accum
     free_card(torch)
+    lr = out["lr"]
     print(f"train [{TRAIN_ARCH} x{TRAIN_CHECK_LAYERS} float32]: "
           f"{count_params(cfg):,} params, batch {TRAIN_CHECK_BATCH} x "
-          f"{TRAIN_CHECK_SEQ}, one train step at lr {lr:g}: loss on the card "
+          f"{TRAIN_CHECK_SEQ}, remat full, one train step at lr {lr:g}: loss "
+          f"on the card "
           f"against the CPU relative {out['loss_rel']:.3e}, grad_norm "
           f"{out['grad_norm_rel']:.3e} (bound {TRAIN_REL_BOUND:g}), updated "
           f"parameters max abs {out['param_max_abs']:.3e} (bound "
@@ -1682,9 +1784,10 @@ def train_loop_leg(np, torch, card: str) -> dict:
            "steps": TRAIN_STEPS, "losses": [losses[s] for s in sorted(losses)],
            "step_ms": step_ms, "median_step_ms": median_ms,
            "bound_ms": bound_ms, "tokens_per_s": tokens / median_ms * 1e3,
-           "run_s": run_s, "max_memory_allocated": peak,
+           "run_s": run_s, "max_memory_allocated": peak, "remat": cfg.remat,
            "resumed_at": TRAIN_RESUME_AT, "resume_bit_equal": True}
     print(f"train [{TRAIN_ARCH} {cfg.param_dtype}]: {n_params:,} params, "
+          f"remat {cfg.remat}, "
           f"TrainLoop batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps "
           f"(lr {TRAIN_LR:g}, warm-up {TRAIN_WARMUP}), checkpoint at "
           f"{TRAIN_RESUME_AT}: loss {losses[1]:.4f} at step 1 -> "
@@ -1703,6 +1806,265 @@ def train_loop_leg(np, torch, card: str) -> dict:
     return out
 
 
+def loss_and_grads(torch, cfg, params, batch):
+    """``loss_fn`` and its gradients over every parameter leaf, taken as
+    ``train.step`` takes them (leaves detached and requiring grad), on the
+    batch moved to the card."""
+    from repro_torch.models import loss_fn
+    from repro_torch.models.layers import tree_leaves_with_path, tree_map
+
+    leaves = [t.detach().requires_grad_(True)
+              for _, t in tree_leaves_with_path(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    loss, _ = loss_fn(live, cfg, torch.as_tensor(batch["tokens"]).to(DEV),
+                      torch.as_tensor(batch["labels"]).to(DEV))
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def grad_peak(torch, cfg, params, batch) -> tuple:
+    """(``max_memory_allocated`` over loss and gradients alone, reset just
+    before; the bytes allocated before them)."""
+    free_card(torch)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = loss_and_grads(torch, cfg, params, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del loss, grads
+    free_card(torch)
+    return peak, held
+
+
+def step_timer(torch):
+    """A pair of CUDA events recording around a call: ``(start, end)``."""
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def train_remat_leg(np, torch, card: str) -> dict:
+    """qwen2-0.5b at full width and depth, its own dtypes (bfloat16
+    parameters, float32 moments), batch TRAIN_BATCH x TRAIN_SEQ, at each
+    remat from the same weights and batch: ``max_memory_allocated`` over
+    loss and gradients alone and over whole steps (AdamW's out-of-place
+    trees included), and the step's ms (CUDA events, median of
+    TRAIN_REMAT_STEPS after a warm-up)."""
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    t0 = time.perf_counter()
+    base = lm_config(TRAIN_ARCH)
+    params = init_params(base, torch.Generator(DEV).manual_seed(0))
+    batch = TokenDataset(TokenDatasetConfig(
+        vocab_size=base.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, n_patterns=TRAIN_PATTERNS)).batch(0)
+    out = {}
+    for remat in REMATS:
+        cfg = base.scaled(remat=remat)
+        grad_max, held = grad_peak(torch, cfg, params, batch)
+        step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=0)
+        opt = adamw_init(params)
+        losses = [float(step(params, opt, batch)[2]["loss"])]   # warm-up
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for _ in range(TRAIN_REMAT_STEPS):
+            start, end = step_timer(torch)
+            start.record()
+            metrics = step(params, opt, batch)[2]
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(float(metrics["loss"]))
+        out[remat] = {"median_step_ms": statistics.median(ms), "step_ms": ms,
+                      "grad_max_memory_allocated": grad_max,
+                      "step_max_memory_allocated":
+                          torch.cuda.max_memory_allocated(),
+                      "held_before": held, "loss": losses[0]}
+        check(len(set(losses)) == 1, f"train remat [{TRAIN_ARCH}]: the same "
+                                     f"step at {remat} gave losses {losses}")
+        del opt
+        free_card(torch)
+    del params
+    free_card(torch)
+    for remat, r in out.items():
+        print(f"train remat [{TRAIN_ARCH} {base.param_dtype}] remat={remat}: "
+              f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, step "
+              f"{r['median_step_ms']:.3f} ms (median of {TRAIN_REMAT_STEPS}, "
+              f"CUDA events; min {min(r['step_ms']):.3f}, max "
+              f"{max(r['step_ms']):.3f}); max_memory_allocated over loss and "
+              f"gradients {r['grad_max_memory_allocated']:,} B "
+              f"({r['grad_max_memory_allocated'] - r['held_before']:,} B "
+              f"above the {r['held_before']:,} B held before), over the "
+              f"whole step {r['step_max_memory_allocated']:,} B; loss "
+              f"{r['loss']:.4f}; {card}", flush=True)
+    check(len({r["loss"] for r in out.values()}) == 1,
+          f"train remat [{TRAIN_ARCH}]: losses differ across remat "
+          f"{[r['loss'] for r in out.values()]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def recurrence_kept_bytes(torch, cfg, batch: int, seq: int) -> dict:
+    """The bytes the RWKV time-mix recurrence keeps for the backward, read
+    from its own saved tensors: its steps (``rwkv._mix_steps``, no
+    checkpoint) at (batch, heads, head dim) on the card under
+    ``saved_tensors_hooks``, one step and two, the difference a step,
+    times ``seq`` and the layers; beside the chunked scan's, one float32
+    state a chunk of ``cfg.ssm_chunk``."""
+    from repro_torch.models import rwkv
+
+    h, k = rwkv.num_heads_of(cfg), cfg.rwkv_head_dim
+
+    def kept(steps: int) -> int:
+        gen = torch.Generator(DEV).manual_seed(steps)
+        xs = [torch.randn((batch, steps, h, k), generator=gen, device=DEV,
+                          requires_grad=True) for _ in range(4)]
+        u = torch.randn((h, k), generator=gen, device=DEV,
+                        requires_grad=True)
+        inputs = {t.untyped_storage().data_ptr() for t in (*xs, u)}
+        seen = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            if st.data_ptr() not in inputs:
+                seen[st.data_ptr()] = st.nbytes()
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = rwkv._mix_steps(torch.zeros((batch, h, k, k), device=DEV),
+                                  *xs, u)
+        del out
+        return sum(seen.values())
+
+    per_step = kept(2) - kept(1)
+    state = batch * h * k * k * 4
+    return {"per_step": per_step, "state": state,
+            "stepwise": per_step * seq * cfg.num_layers,
+            "chunked": math.ceil(seq / cfg.ssm_chunk) * state
+            * cfg.num_layers}
+
+
+def rwkv_train_run(torch, cfg, batches) -> dict:
+    """``len(batches)`` train steps of ``cfg`` from fresh weights, each on
+    the parameters the last one returned (the steps' ms by CUDA events,
+    their losses and peak), then the peak over loss and gradients alone
+    on the last parameters, the moments freed first."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import make_train_step
+
+    params = init_params(cfg, torch.Generator(DEV).manual_seed(0))
+    opt = adamw_init(params)
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=0)
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses = [], []
+    for batch in batches:
+        start, end = step_timer(torch)
+        start.record()
+        params, opt, metrics = step(params, opt, batch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    del opt
+    grad_max, held = grad_peak(torch, cfg, params, batches[0])
+    del params
+    free_card(torch)
+    check(all(math.isfinite(x) for x in losses),
+          f"train rwkv: losses {losses}")
+    return {"step_ms": ms, "losses": losses, "grad_max_memory_allocated":
+            grad_max, "held_before": held, "step_max_memory_allocated": peak}
+
+
+def train_rwkv_leg(np, torch, card: str) -> dict:
+    """rwkv6-3b at full width, its own dtypes (bfloat16 parameters, float32
+    moments), ``ssm_chunk`` 16 and ``remat="full"``, batch TRAIN_BATCH x
+    TRAIN_SEQ, TRAIN_RWKV_STEPS steps (the loss before the first update
+    and after it) at the largest depth of
+    TRAIN_RWKV_DEPTHS whose "full" run fits on the card, then the same at
+    "none" (its out-of-memory stated, not failed); and the bytes the
+    step-by-step recurrence would keep without the chunk checkpoints."""
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+    from repro_torch.models import count_params
+
+    t0 = time.perf_counter()
+    base = lm_config(TRAIN_RWKV_ARCH)
+    ds = TokenDataset(TokenDatasetConfig(
+        vocab_size=base.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, n_patterns=TRAIN_PATTERNS))
+    batches = [ds.batch(i) for i in range(TRAIN_RWKV_STEPS)]
+    depths = [d for d in TRAIN_RWKV_DEPTHS if d < base.num_layers]
+    out = {"runs": {}, "out_of_memory": {}}
+    for depth in [base.num_layers, *depths]:
+        for remat in ("full", "none"):
+            cfg = base.scaled(num_layers=depth, remat=remat)
+            try:
+                out["runs"][remat] = rwkv_train_run(torch, cfg, batches)
+                continue
+            except torch.OutOfMemoryError as e:
+                out["out_of_memory"][f"{remat} x{depth}"] = {
+                    "error": " ".join(str(e).split(". ")[:2]),
+                    "max_memory_allocated":
+                        torch.cuda.max_memory_allocated()}
+            free_card(torch)
+            if remat == "full":
+                break
+        if "full" in out["runs"]:
+            break
+    check("full" in out["runs"], f"train rwkv: no depth of "
+                                 f"{TRAIN_RWKV_DEPTHS} fits at remat full: "
+                                 f"{out['out_of_memory']}")
+    cfg = base.scaled(num_layers=depth)
+    out.update(depth=depth, params=count_params(cfg),
+               kept=recurrence_kept_bytes(torch, cfg, TRAIN_BATCH, TRAIN_SEQ))
+    free_card(torch)
+    for remat, r in out["runs"].items():
+        print(f"train rwkv [{TRAIN_RWKV_ARCH} x{depth} of {base.num_layers} "
+              f"{base.param_dtype}] remat={remat}: {out['params']:,} params, "
+              f"ssm_chunk {base.ssm_chunk}, batch {TRAIN_BATCH} x "
+              f"{TRAIN_SEQ}, {TRAIN_RWKV_STEPS} steps at lr {TRAIN_LR:g}: "
+              f"step ms {[round(x, 3) for x in r['step_ms']]} (CUDA events); "
+              f"loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}; "
+              f"max_memory_allocated over the steps "
+              f"{r['step_max_memory_allocated']:,} B, over loss and "
+              f"gradients alone {r['grad_max_memory_allocated']:,} B (above "
+              f"the {r['held_before']:,} B of parameters); {card}",
+              flush=True)
+    k = out["kept"]
+    print(f"train rwkv [{TRAIN_RWKV_ARCH} x{depth}]: out of memory at "
+          f"{json.dumps(out['out_of_memory'])}; the recurrence keeps "
+          f"{k['per_step']:,} B a step ({k['per_step'] / k['state']:.2f} "
+          f"float32 states of {k['state']:,} B) step by step, "
+          f"{k['stepwise']:,} B over {TRAIN_SEQ} steps and {depth} layers "
+          f"without the chunk checkpoints, {k['chunked']:,} B with them (one "
+          f"state a chunk of {base.ssm_chunk}); "
+          f"{time.perf_counter() - t0:.1f} s; {card}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def train_hybrid_check(np, torch, card: str) -> dict:
+    """jamba's smoke config (Mamba chunk checkpoints over ``ssm_chunk``
+    steps, attention, MoE) at every remat, bit for bit, and card against
+    CPU at "full": jamba at full width does not train on one card (one
+    period of 8 layers is about 53 GB in float32)."""
+    from repro_torch.configs.archs import smoke_config
+    from repro_torch.data.synthetic import TokenDataset, TokenDatasetConfig
+
+    cfg = smoke_config(TRAIN_HYBRID_ARCH)
+    batch = TokenDataset(TokenDatasetConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_CHECK_SEQ,
+        global_batch=TRAIN_CHECK_BATCH)).batch(0)
+    return remat_step_check(np, torch, cfg, batch,
+                            f"{TRAIN_HYBRID_ARCH} smoke float32, ssm_chunk "
+                            f"{cfg.ssm_chunk}", card)
+
+
 def train_phase(np, torch, card: str) -> dict:
     """Phase 9: training on the card, every kernel launch counter set to 0
     just before (training launches none of the nine kernels)."""
@@ -1713,7 +2075,10 @@ def train_phase(np, torch, card: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"float32": train_float32_check(np, torch, card),
-              "loop": train_loop_leg(np, torch, card)}
+              "hybrid": train_hybrid_check(np, torch, card),
+              "loop": train_loop_leg(np, torch, card),
+              "remat": train_remat_leg(np, torch, card),
+              "rwkv": train_rwkv_leg(np, torch, card)}
 
     export_pythonpath()
     flag = ["--device", "cpu"] if DEV == "cpu" else []
@@ -2071,6 +2436,11 @@ def gloo_measure(np, torch, out_dir: str) -> dict:
                     torch.autograd.grad(loss, leaves))}
 
         ga, gd = grads(cfg_a), grads(cfg_d)
+        # the all-to-all path's gradient at the other remats: the same bits
+        out["a2a_remat_equal"] = {
+            remat: all(torch.equal(g, ga[k]) for k, g in grads(
+                cfg_a.scaled(remat=remat)).items())
+            for remat in ("dots", "full")}
         out["a2a_grad_norm_sq"] = sum(float((g.float() ** 2).sum())
                                       for g in ga.values())
         out["a2a_grad_rel"] = {
@@ -2119,6 +2489,19 @@ def gloo_measure(np, torch, out_dir: str) -> dict:
             "params_placed": all(
                 t.placements == q.placements for (_, t), (_, q)
                 in zip(tree_leaves_with_path(p2), tree_leaves_with_path(pp)))}
+        # the same meshed step at remat="full": the same bits, and the
+        # collectives its backward's recompute issues again
+        log = collective_log(torch)
+        with log:
+            p3, _, m3 = make_train_step(cfg.scaled(remat="full"), mesh, train,
+                                        warmup_steps=0)(pp, adamw_init(pp),
+                                                        batch)
+        out["remat_full"] = {
+            "params_equal": all(torch.equal(full(t), full(params2[k]))
+                                for k, t in tree_leaves_with_path(p3)),
+            "metrics_equal": all(torch.equal(m3[k], m2[k])
+                                 for k in ("loss", "grad_norm")),
+            "collectives": collective_totals(log.ops, ring_bytes)}
 
     # greedy tokens, meshed against unmeshed
     out["serve"] = {}
@@ -2468,6 +2851,12 @@ def shard_gloo_leg(np, torch) -> dict:
         check(t["step"] == 1 and t["moments_placed"] and t["params_placed"]
               and t["param_max_abs"] <= TRAIN_PARAM_LR_SHARE * t["lr"],
               f"shard: the gloo rehearsal's meshed {label} train step: {t}")
+    full = got["remat_full"]
+    check(full["params_equal"] and full["metrics_equal"]
+          and all(got["a2a_remat_equal"].values()),
+          f"shard: the gloo rehearsal's meshed steps at other remats differ: "
+          f"dense at full {full['params_equal']}, {full['metrics_equal']}; "
+          f"the all-to-all's gradient {got['a2a_remat_equal']}")
     dense = {"/".join(k): t.numpy()
              for k, t in tree_leaves_with_path(params["dense"])}
     for name, leaves in got["ckpt"].items():
@@ -2498,13 +2887,18 @@ def shard_gloo_leg(np, torch) -> dict:
                     for k in m["all"]["counts"]}
             reading[f"{step} {label}"] = {"equal": have == want,
                                           "measured": have}
+    # the dense step at remat="full": its recompute's collectives on top
+    reading["train dense remat=full"] = {
+        "measured_bytes": sum(full["collectives"]["all"]["bytes"].values()),
+        "reckoned_bytes": reading["train dense"]["reckoned_bytes"]}
     print(f"shard: the gloo rehearsal ({GLOO_PROCS} processes, mesh "
           f"{got['mesh']}, torch {got['torch']}) in {seconds:.1f} s: dense "
           f"and MLA forward against unmeshed within atol {GLOO_FWD_ATOL:g} "
           f"rtol {GLOO_FWD_RTOL:g}, greedy tokens equal; the all-to-all "
           f"against dispatch {got['a2a_err']:.3e}, its gradient within "
-          f"{grad_rel:.3e} of each leaf's norm; the dense train step "
-          f"within {TRAIN_PARAM_LR_SHARE:g} of lr; the "
+          f"{grad_rel:.3e} of each leaf's norm, the same bits at remat "
+          f"dots and full; the dense train step within "
+          f"{TRAIN_PARAM_LR_SHARE:g} of lr, the same bits at remat full; the "
           f"checkpoint restored onto (4, 1) and (2, 2); collectives "
           f"against the reckoning {json.dumps(reading)}", flush=True)
     return {"seconds": seconds, "a2a_err": got["a2a_err"],

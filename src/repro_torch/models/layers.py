@@ -45,7 +45,9 @@ DTensor cache, into the local shard that holds the position.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import threading
 from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
@@ -85,13 +87,99 @@ def einsum(eq: str, a: Tensor, b: Tensor) -> Tensor:
     """``torch.einsum`` with JAX's dtype promotion: both operands are cast
     to their common dtype first (bfloat16 with float32 gives float32)."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dt), b.to(dt))
+    return _contract(eq, a.to(dt), b.to(dt))
 
 
 def einsum_f32(eq: str, a: Tensor, b: Tensor) -> Tensor:
     """JAX's ``einsum(..., preferred_element_type=float32)``: accumulated
     in and returned as float32, whatever the operands' dtype."""
-    return torch.einsum(eq, a.float(), b.float())
+    return _contract(eq, a.float(), b.float())
+
+
+# ---------------------------------------------------------------------------
+# activation rematerialization
+#
+# The contraction in flight: whether the product ``einsum``/``einsum_f32``
+# is issuing has no batch dimension (no index in both operands and the
+# output), which is what ``dots_saveable`` saves.
+_DOTS = threading.local()
+_DOT_OPS = ("mm", "bmm")
+
+
+@functools.lru_cache(maxsize=None)
+def _no_batch_dims(eq: str) -> bool:
+    ins, out = eq.replace(" ", "").split("->")
+    lhs, rhs = ins.split(",")
+    return not set(lhs) & set(rhs) & set(out)
+
+
+def _contract(eq: str, a: Tensor, b: Tensor) -> Tensor:
+    _DOTS.saveable = _no_batch_dims(eq)
+    try:
+        return torch.einsum(eq, a, b)
+    finally:
+        _DOTS.saveable = False
+
+
+def dots_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``remat="dots"``, the reference's
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: the
+    matrix product of an ``einsum``/``einsum_f32`` with no batch dimension
+    (a projection ``bsd,de->bse``) is saved, everything else (attention's
+    ``bqhd,bkhd->bhqk``, the experts' ``ecd,edf->ecf``, the recurrences'
+    products, every elementwise op) is recomputed. The aten op alone
+    cannot tell them apart: ``torch.einsum`` issues ``bmm`` for both."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if (getattr(_DOTS, "saveable", False)
+            and op.overloadpacket.__name__ in _DOT_OPS):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def records(*tensors) -> bool:
+    """Whether autograd records a graph through any of ``tensors``: grad
+    mode on and one of them requiring grad."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, Tensor) and t.requires_grad for t in tensors)
+
+
+def checkpointed(fn: Callable, *args, context_fn: Optional[Callable] = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: the tensors its
+    forward saves are dropped and recomputed in the backward; only the
+    tensor arguments are kept. Non-reentrant, because ``train.step`` takes
+    its gradients with ``torch.autograd.grad``. The model draws no random
+    numbers, so no RNG state is stashed. ``context_fn`` is the selective
+    policy's (``remat="dots"``)."""
+    import torch.utils.checkpoint as ckpt
+
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                           preserve_rng_state=False, **kw)
+
+
+def chunk_scan(fn: Callable, state: Tensor, seqs: Tuple[Tensor, ...],
+               chunk: int, *consts: Tensor):
+    """A recurrence over dim 1 of each (B, S, ...) tensor in ``seqs``, in
+    pieces of ``chunk`` steps (the last may be short): ``fn(state,
+    *pieces, *consts) -> (state, out)``, each piece's (B, L, ...) ``out``
+    joined along dim 1. Where autograd records, each piece runs under
+    ``checkpointed``: the backward keeps one state a piece, not one a
+    step, and recomputes the piece's steps, as the reference's
+    ``jax.checkpoint`` of a chunk does. Returns (the joined outputs, None
+    for S = 0; the last state)."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, not {chunk}")
+    keep = records(state, *seqs, *consts)
+    outs = []
+    for start in range(0, seqs[0].shape[1], chunk):
+        pieces = [t[:, start:start + chunk] for t in seqs]
+        if keep:
+            state, out = checkpointed(fn, state, *pieces, *consts)
+        else:
+            state, out = fn(state, *pieces, *consts)
+        outs.append(out)
+    return (torch.cat(outs, dim=1) if outs else None), state
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,18 @@ The parameter tree is the reference's, key path for key path and shape for
 shape: every leaf of ``params["layers"]["p<k>"]`` carries a leading
 ``num_groups`` axis (logical axis "layers"; one group = one period of
 ``cfg.layer_pattern``). The group loop indexes that axis one group at a
-time; ``scan_layers`` and ``remat`` change nothing here and are kept as
-config fields only.
+time. ``scan_layers`` is a config field only: the reference picks
+``lax.scan`` or an unrolled loop over the same math, a choice of how XLA
+traces the loop that eager torch does not have.
+
+``cfg.remat`` is the reference's: where autograd records (training), each
+group's body runs under ``torch.utils.checkpoint``. "full" keeps only the
+group's input carry and recomputes the body in the backward; "dots" saves
+the outputs of the products with no batch dimension (the projections) and
+recomputes the rest (``layers.dots_saveable``, the reference's
+``dots_with_no_batch_dims_saveable``); "none" keeps everything. Outputs
+and gradients are the same bits whichever it is. Prefill, decode and
+serving record nothing and run the body as it is.
 
 Three entry points per model:
   forward(...)                train / prefill (optionally returns the cache)
@@ -28,6 +38,7 @@ int8 values as they are, without their scale, as the reference's does
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -43,8 +54,11 @@ from repro_torch.models.layers import (
     P,
     Sharder,
     apply_norm,
+    checkpointed,
+    dots_saveable,
     einsum,
     init_norm,
+    records,
     resolve_device,
     sinusoidal_pos,
     split_tree,
@@ -217,6 +231,23 @@ def _group_body(cfg: ModelConfig, shd: Sharder, positions, collect_cache,
     return (x, aux), caches if collect_cache else None
 
 
+REMAT = ("none", "dots", "full")
+
+
+def _remat_context(cfg: ModelConfig):
+    """The ``context_fn`` of ``cfg.remat``'s checkpoint: the selective
+    policy for "dots", None for "full" (and "none", which runs no
+    checkpoint)."""
+    if cfg.remat not in REMAT:
+        raise ValueError(f"unknown remat {cfg.remat!r}; known: {REMAT}")
+    if cfg.remat != "dots":
+        return None
+    import torch.utils.checkpoint as ckpt
+
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             dots_saveable)
+
+
 def _group(tree: Any, i: int) -> Any:
     """Group ``i`` of a stacked tree: views, so writes reach the stack."""
     return tree_map(lambda a: a[i], tree)
@@ -271,11 +302,21 @@ def forward(
         x = x + sinusoidal_pos(positions, cfg.d_model).to(x.dtype)
     x = shd(x, ("act_batch", "act_seq", "act_embed"))
 
+    context_fn = _remat_context(cfg)
+
+    def body(x_, aux_, gp):
+        # the carry as two tensor arguments: what a checkpoint keeps
+        return _group_body(cfg, shd, positions, return_cache, (x_, aux_), gp)
+
     carry = (x, torch.zeros((), dtype=torch.float32, device=x.device))
     cache_list = []
     for i in range(cfg.num_groups):
-        carry, c = _group_body(cfg, shd, positions, return_cache, carry,
-                               _group(params["layers"], i))
+        gp = _group(params["layers"], i)
+        if cfg.remat != "none" and records(
+                *carry, *(t for _, t in tree_leaves_with_path(gp))):
+            carry, c = checkpointed(body, *carry, gp, context_fn=context_fn)
+        else:
+            carry, c = body(*carry, gp)
         cache_list.append(c)
     x, aux = carry
     caches = _stack(cache_list) if return_cache else None

@@ -35,7 +35,13 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.layers import Builder, Sharder, einsum, on_replicated
+from repro_torch.models.layers import (
+    Builder,
+    Sharder,
+    einsum,
+    einsum_f32,
+    on_replicated,
+)
 from repro_torch.models.mlp import init_mlp, mlp_apply
 from repro_torch.sharding.logical import PartitionSpec, mesh_shape, placements
 
@@ -58,7 +64,7 @@ def init_moe(b: Builder, cfg) -> dict:
 
 def _route(p: dict, xt: Tensor, cfg) -> Tuple[Tensor, Tensor, Tensor]:
     """xt: (T, d) -> (gates (T,k), idx (T,k), aux_loss scalar)."""
-    logits = torch.einsum("td,de->te", xt.float(), p["router"].float())
+    logits = einsum_f32("td,de->te", xt, p["router"])
     k = cfg.experts_per_token
     if k == 1 and "shared" in p:   # llama4: sigmoid gate on the top-1 expert
         top_val, top_idx = torch.topk(logits, 1, dim=-1)
@@ -217,7 +223,7 @@ def moe_apply_alltoall(p: dict, x: Tensor, cfg,
     my = mesh.get_local_rank("model")
     xs = x_blk.reshape(t_loc, d)[my * tpd:(my + 1) * tpd]
 
-    logits = torch.einsum("td,de->te", xs.float(), router.float())
+    logits = einsum_f32("td,de->te", xs, router)
     if k == 1 and cfg.name.startswith("llama4"):
         top_val, top_idx = torch.topk(logits, 1, dim=-1)
         gates = torch.sigmoid(top_val)

@@ -7,13 +7,16 @@ Recurrence per head (K = V = head dim):
     out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 
 Token-shift uses the data-dependent linear interpolation (ddlerp) of
-RWKV-6 with low-rank adapters. The reference scans the sequence in chunks
-of ``ssm_chunk`` steps padded with identity steps (w = 1, k = 0); the port
-runs the same steps one at a time, in float32, and needs no padding.
+RWKV-6 with low-rank adapters. Both packages scan the sequence in chunks
+of ``cfg.ssm_chunk`` steps, each chunk checkpointed, so the backward keeps
+one state a chunk and recomputes the chunk's steps; inside a chunk both
+run the steps one at a time, in float32. The reference pads the last
+chunk with identity steps (w = 1, k = 0); the port's may be short.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -21,6 +24,7 @@ import torch
 from repro_torch.models.layers import (
     Builder,
     Sharder,
+    chunk_scan,
     einsum,
     groupnorm_heads,
     on_replicated,
@@ -93,19 +97,26 @@ def _ddlerp(p: dict, x: Tensor, sx: Tensor, shd: Sharder) -> list:
             for i in range(len(_MIX_NAMES))]
 
 
-def _time_mix_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
-                   s0: Tensor) -> Tuple[Tensor, Tensor]:
-    """r/k/v/w: (B,S,H,K) float32; u: (H,K); s0: (B,H,K,V). Returns
-    (out (B,S,H,K), s_last)."""
-    st = s0
+def _mix_steps(st: Tensor, r: Tensor, k: Tensor, v: Tensor, w: Tensor,
+               u: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk, a step at a time: st (B,H,K,V); r/k/v/w (B,L,H,K) ->
+    (st_last, out (B,L,H,K))."""
     outs = []
     for t in range(r.shape[1]):
         kv = k[:, t, :, :, None] * v[:, t, :, None, :]        # (B,H,K,V)
         outs.append(torch.einsum("bhk,bhkv->bhv", r[:, t],
                                  st + u[..., None] * kv))
         st = w[:, t, :, :, None] * st + kv
-    out = torch.stack(outs, dim=1) if outs else torch.zeros_like(r)
-    return out, st
+    return st, torch.stack(outs, dim=1)
+
+
+def _time_mix_scan(r: Tensor, k: Tensor, v: Tensor, w: Tensor, u: Tensor,
+                   s0: Tensor, chunk: int) -> Tuple[Tensor, Tensor]:
+    """r/k/v/w: (B,S,H,K) float32; u: (H,K); s0: (B,H,K,V); ``chunk``
+    steps a checkpointed chunk (``layers.chunk_scan``). Returns (out
+    (B,S,H,K), s_last)."""
+    out, st = chunk_scan(_mix_steps, s0, (r, k, v, w), chunk, u)
+    return (torch.zeros_like(r) if out is None else out), st
 
 
 def _decay(p: dict, xw: Tensor) -> Tensor:
@@ -142,7 +153,8 @@ def rwkv_time_forward(p: dict, x: Tensor, cfg, shd: Sharder,
           else torch.zeros((b_, h, kd, kd), dtype=torch.float32,
                            device=x.device))
     out, s_last = on_shards(
-        shd, _time_mix_scan, (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
+        shd, functools.partial(_time_mix_scan, chunk=cfg.ssm_chunk),
+        (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
         (0, 5), r.float(), k.float(), v.float(), w, p["bonus_u"].float(), s0)
     out = groupnorm_heads(out, p["ln_scale"], p["ln_bias"], cfg.norm_eps)
     out = out.reshape(b_, s, d).to(x.dtype) * g
@@ -159,7 +171,8 @@ def rwkv_time_decode(p: dict, x: Tensor, cfg, shd: Sharder, state: dict
     sx = state["shift"][:, None, :] - x
     r, k, v, g, w = _project(p, x, sx, h, kd, shd)
     out, st = on_shards(
-        shd, _time_mix_scan, (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
+        shd, functools.partial(_time_mix_scan, chunk=cfg.ssm_chunk),
+        (STEP_AXES,) * 4 + (HEAD_AXES, STATE_AXES),
         (0, 5), r.float(), k.float(), v.float(), w, p["bonus_u"].float(),
         state["wkv"])
     out, g = out[:, 0], g[:, 0]

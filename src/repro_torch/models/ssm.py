@@ -2,11 +2,13 @@
 counterpart of ``repro.models.ssm``.
 
 The diagonal A makes the recurrence h_t = a_t * h_{t-1} + b_t with
-elementwise a_t. The reference runs it as an associative scan inside
-chunks of ``ssm_chunk`` steps and a ``lax.scan`` over the chunks; the port
-runs the recurrence one step at a time, in float32, which is the same
-arithmetic with the products and sums in another order (the tests state
-the tolerance this needs). Padding with identity steps is not needed.
+elementwise a_t. Both packages cut the sequence into chunks of
+``cfg.ssm_chunk`` steps and checkpoint each chunk, so the backward keeps
+one state a chunk and recomputes the chunk's steps. Inside a chunk the
+reference runs an associative scan; the port runs the steps one at a
+time, in float32, which is the same arithmetic with the products and sums
+in another order (the tests state the tolerance this needs), and its last
+chunk may be short where the reference pads with identity steps.
 
 Decode carries (conv window, ssm state), both O(1) in sequence length.
 """
@@ -17,7 +19,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import Builder, Sharder, einsum, on_shards
+from repro_torch.models.layers import (
+    Builder,
+    Sharder,
+    chunk_scan,
+    einsum,
+    on_shards,
+)
 
 Tensor = torch.Tensor
 
@@ -62,22 +70,32 @@ def _causal_conv(x: Tensor, w: Tensor, bias: Tensor) -> Tensor:
     return y + bias
 
 
-def selective_scan(dt: Tensor, B: Tensor, C: Tensor, xg: Tensor, A: Tensor,
-                   h0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """dt/xg: (B,S,di) float32; B/C: (B,S,N); A: (di,N). Returns
-    (y (B,S,di), h_last (B,di,N)), both float32."""
-    b_, s, di = xg.shape
-    n = B.shape[-1]
-    h = (torch.zeros((b_, di, n), dtype=torch.float32, device=xg.device)
-         if h0 is None else h0)
+def _scan_steps(h: Tensor, dt: Tensor, B: Tensor, C: Tensor, xg: Tensor,
+                A: Tensor) -> Tuple[Tensor, Tensor]:
+    """One chunk, a step at a time: h (B,di,N); dt/xg (B,L,di); B/C
+    (B,L,N) -> (h_last, y (B,L,di))."""
     ys = []
-    for t in range(s):
+    for t in range(xg.shape[1]):
         a = torch.exp(dt[:, t, :, None] * A)                     # (B,di,N)
         bx = (dt[:, t] * xg[:, t])[..., None] * B[:, t, None, :]
         h = a * h + bx
         ys.append(torch.einsum("bdn,bn->bd", h, C[:, t]))
-    y = (torch.stack(ys, dim=1) if ys
-         else xg.new_zeros((b_, 0, di), dtype=torch.float32))
+    return h, torch.stack(ys, dim=1)
+
+
+def selective_scan(dt: Tensor, B: Tensor, C: Tensor, xg: Tensor, A: Tensor,
+                   chunk: int, h0: Optional[Tensor] = None
+                   ) -> Tuple[Tensor, Tensor]:
+    """dt/xg: (B,S,di) float32; B/C: (B,S,N); A: (di,N); ``chunk`` steps a
+    checkpointed chunk (``layers.chunk_scan``). Returns (y (B,S,di),
+    h_last (B,di,N)), both float32."""
+    b_, s, di = xg.shape
+    n = B.shape[-1]
+    h = (torch.zeros((b_, di, n), dtype=torch.float32, device=xg.device)
+         if h0 is None else h0)
+    y, h = chunk_scan(_scan_steps, h, (dt, B, C, xg), chunk, A)
+    if y is None:
+        y = xg.new_zeros((b_, 0, di), dtype=torch.float32)
     return y, h
 
 
@@ -107,11 +125,12 @@ def _inner_axes(p: dict) -> tuple:
 
 
 def _mixer_rows(p: dict, xz: Tensor, h0: Tensor, conv0: Optional[Tensor],
-                keep: int, dtype: torch.dtype):
+                keep: int, dtype: torch.dtype, chunk: int):
     """The mixer between its projections on whole rows: xz (B,S,2di) ->
     (y (B,S,di), the last state h (B,di,N), the conv state (B,keep,di));
     ``conv0`` the decode's conv state (None in train/prefill); the scan's
-    float32 output is cast to ``dtype``, the mixer input's."""
+    float32 output is cast to ``dtype``, the mixer input's; ``chunk`` the
+    scan's checkpointed chunk."""
     xp, z = torch.chunk(xz, 2, dim=-1)
     if conv0 is None:
         s = xp.shape[1]
@@ -124,13 +143,14 @@ def _mixer_rows(p: dict, xz: Tensor, h0: Tensor, conv0: Optional[Tensor],
         xc = (einsum("bci,ci->bi", win, p["conv_w"]) + p["conv_b"])[:, None]
     xg = torch.nn.functional.silu(xc)
     dt, Bm, Cm, A = _dt_b_c(p, xg)
-    y, h = selective_scan(dt, Bm, Cm, xg.float(), A, h0)
+    y, h = selective_scan(dt, Bm, Cm, xg.float(), A, chunk, h0)
     y = y.to(dtype) + p["D"] * xg
     return y * torch.nn.functional.silu(z), h, conv
 
 
 def _rows(shd: Sharder, p: dict, xz: Tensor, h0: Tensor,
-          conv0: Optional[Tensor], keep: int, dtype: torch.dtype):
+          conv0: Optional[Tensor], keep: int, dtype: torch.dtype,
+          chunk: int):
     """``_mixer_rows`` on each rank's batch rows under a mesh (the weights
     between the projections gathered whole), else as it is."""
     weights = [p[k] for k in _INNER]
@@ -139,7 +159,7 @@ def _rows(shd: Sharder, p: dict, xz: Tensor, h0: Tensor,
     def rows(xz_, h_, *rest):
         inner = dict(zip(_INNER, rest[:len(_INNER)]))
         return _mixer_rows(inner, xz_, h_, rest[len(_INNER)] if state
-                           else None, keep, dtype)
+                           else None, keep, dtype, chunk)
 
     axes = (ROW_AXES, ROW_AXES, *_inner_axes(p), *((ROW_AXES,) * len(state)))
     return on_shards(shd, rows, axes, (0, 1, 0), xz, h0, *weights, *state)
@@ -153,7 +173,7 @@ def mamba_forward(p: dict, x: Tensor, cfg, shd: Sharder
     h0 = torch.zeros((x.shape[0], p["A_log"].shape[0], p["A_log"].shape[1]),
                      dtype=torch.float32, device=x.device)
     y, h_last, conv = _rows(shd, p, xz, h0, None, cfg.ssm_conv_dim - 1,
-                            x.dtype)
+                            x.dtype, cfg.ssm_chunk)
     out = einsum("bsi,id->bsd", y, p["w_out"])
     state = {"h": h_last, "conv": conv}
     return shd(out, ("act_batch", "act_seq", "act_embed")), state
@@ -165,6 +185,6 @@ def mamba_decode(p: dict, x: Tensor, cfg, shd: Sharder, state: dict
     (B,dc-1,di). Returns (out, new state)."""
     xz = einsum("bsd,de->bse", x, p["w_in"])
     y, h, conv = _rows(shd, p, xz, state["h"], state["conv"],
-                       cfg.ssm_conv_dim - 1, x.dtype)
+                       cfg.ssm_conv_dim - 1, x.dtype, cfg.ssm_chunk)
     out = einsum("bsi,id->bsd", y, p["w_out"])
     return out, {"h": h, "conv": conv}

@@ -16,13 +16,14 @@ and the peak is not measured there), dry-runs the workload with the
 ``--device cpu``. Phase 8 runs the LM checks on the reduced configs (the
 card and the CPU both the CPU): qwen2, MLA, RWKV, MoE, the hybrid, int8
 weights and the two serving legs, and the LM CLI and example with
-``--device cpu``. Phase 9 trains the reduced qwen2 (one step against
-itself, gradient accumulation, ``TrainLoop`` with its checkpoint and
-resume, on a dataset of 4 patterns, which a 256-token vocabulary can
-learn in 20 steps) and runs the train CLI and example with ``--device
-cpu``. Phase 10 reckons the LM dry run and runs the meshed paths on a
-one-rank gloo group's (1, 1) CPU mesh, on the reduced configs, and the
-gloo rehearsal's four processes.
+``--device cpu``. Phase 9 trains the reduced qwen2 (one step at each
+remat, and against itself, gradient accumulation, ``TrainLoop`` with its
+checkpoint and resume, on a dataset of 4 patterns, which a 256-token
+vocabulary can learn in 20 steps; each remat timed), jamba's and rwkv's
+reduced configs at each remat, and runs the train CLI and example with
+``--device cpu``. Phase 10 reckons the LM dry run and runs the meshed
+paths on a one-rank gloo group's (1, 1) CPU mesh, on the reduced
+configs, and the gloo rehearsal's four processes.
 """
 
 import json
@@ -335,6 +336,24 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
     assert len(train["loop"]["step_ms"]) == 20
     assert (train["float32"]["param_max_abs"]
             <= train["float32"]["param_bound"])
+    # the remat legs: bit for bit at every remat (the rehearsal's "card"
+    # and CPU are both the CPU), each remat timed, rwkv trained at its
+    # smoke depth
+    for leg in ("float32", "hybrid"):
+        assert train[leg]["bit_equal"] and train[leg]["remats"] == [
+            "none", "dots", "full"], leg
+    assert "train remat [jamba-v0.1-52b smoke float32, ssm_chunk 4]" \
+        in out.stdout
+    assert sorted(k for k in train["remat"] if k != "seconds") == [
+        "dots", "full", "none"]
+    assert train["loop"]["remat"] == "none"    # the smoke config's own
+    rwkv = train["rwkv"]
+    assert sorted(rwkv["runs"]) == ["full", "none"] and rwkv["depth"] == 2
+    # the first step's loss is a forward from the same weights; later ones
+    # follow gradients whose embedding rows the CPU adds in thread order
+    assert (rwkv["runs"]["full"]["losses"][0]
+            == rwkv["runs"]["none"]["losses"][0])
+    assert rwkv["kept"]["stepwise"] > rwkv["kept"]["chunked"] > 0
     assert "shard: the LM dry run reckoned 64 cells, every one ok" in (
         out.stdout)
     assert ("shard: gloo process group of one rank, make_host_mesh() = "

@@ -5,8 +5,10 @@ Every architecture's ``config()`` and ``smoke()`` (as
 constants; the workload's legacy ``block_w``/``block_h`` views (ROADMAP
 Queue C 7); the public names of the two packages, module by module, with
 the names still to be ported listed once, each with its ROADMAP item
-(Queue C 8); and the synthetic ``TokenDataset`` streams. All of it is
-host code, so the bar is equality.
+(Queue C 8); every ``ModelConfig`` field the reference reads, read by
+the port in the same module, with the one stated exception
+(``CONFIG_READS_NOT_PORTED``); and the synthetic ``TokenDataset``
+streams. All of it is host code, so the bar is equality.
 """
 
 import dataclasses
@@ -14,6 +16,8 @@ import importlib
 import importlib.util
 import itertools
 import pkgutil
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,6 +41,15 @@ ARCHS = jconfigs.list_archs()
 NOT_PORTED = {
     # jax.jit of core.ychg.analyze: no counterpart (repro_torch.core says so)
     "repro.core": ({"analyze_jit"}, "none: a jax.jit wrapper"),
+}
+
+# ModelConfig fields the reference reads (``cfg.<field>``) in a module
+# whose counterpart in the port does not, each with the reason
+CONFIG_READS_NOT_PORTED = {
+    ("models/model.py", "scan_layers"):
+        "the reference's choice between lax.scan and an unrolled loop over "
+        "the same math, how XLA traces the group loop; eager torch runs "
+        "the loop as it is",
 }
 
 
@@ -132,6 +145,41 @@ def test_public_names_match_module_by_module():
                    - _public(importlib.import_module(port)))
         assert missing == gap, (name, sorted(missing), sorted(gap))
     assert set(NOT_PORTED) <= set(modules)
+
+
+def _config_reads(package) -> dict:
+    """Module path (relative to the package, ``configs/`` left out) ->
+    the ``ModelConfig`` fields its source reads as ``cfg.<field>`` or
+    ``getattr(cfg, "<field>", ...)``."""
+    fields = {f.name for f in dataclasses.fields(tconfigs.ModelConfig)}
+    root = Path(package.__path__[0])
+    out = {}
+    for path in sorted(root.rglob("*.py")):
+        rel = path.relative_to(root).as_posix()
+        if rel.startswith("configs/"):
+            continue
+        src = path.read_text()
+        reads = (set(re.findall(r"\bcfg\.(\w+)", src))
+                 | set(re.findall(r"getattr\(cfg, \"(\w+)\"", src))) & fields
+        if reads:
+            out[rel] = reads
+    return out
+
+
+def test_every_config_field_the_reference_reads_the_port_reads():
+    """A guard against a config field the port keeps and ignores (as
+    ``remat`` and ``ssm_chunk`` were until the port checkpointed): every
+    field a module of the reference reads, the port's module of the same
+    path reads too, apart from ``CONFIG_READS_NOT_PORTED``; a listed
+    exception the port has come to read fails too."""
+    import repro_torch
+
+    want, got = _config_reads(repro), _config_reads(repro_torch)
+    missing = {(module, field) for module, fields in want.items()
+               for field in fields - got.get(module, set())}
+    assert missing == set(CONFIG_READS_NOT_PORTED), sorted(missing)
+    assert {"remat", "ssm_chunk"} <= got["models/model.py"] | got[
+        "models/ssm.py"] | got["models/rwkv.py"]
 
 
 @pytest.mark.parametrize("package,names", [

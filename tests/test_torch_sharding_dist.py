@@ -22,7 +22,9 @@ is held:
     (4, 1) mesh (``model`` = 1) and on a local token count that does not
     divide by ``model`` the path is dispatch, as in the reference;
   * a meshed train step against the unmeshed one, parameters within half
-    the step's lr;
+    the step's lr; the same meshed step at ``remat="full"`` equal to the
+    "none" step bit for bit, and the all-to-all path's gradient at "dots"
+    and "full" equal to its "none" gradient bit for bit;
   * ``ServeEngine(mesh=...)`` greedy tokens equal to the unmeshed
     engine's, dense and MLA;
   * a checkpoint saved by the JAX package restored with ``shardings=`` on
@@ -34,7 +36,9 @@ is held:
     op counts and ring bytes by kind for decode (dense, MLA, MoE on both
     paths) and for the train cell's forward (dense, MoE all-to-all); the
     whole train step moves at least the reckoned bytes (DTensor's
-    backward moves more than the reckoning's, ROADMAP Queue C).
+    backward moves more than the reckoning's, ROADMAP Queue C); at
+    ``remat="full"`` the backward's recompute issues the groups' forward
+    collectives again, which the reckoning does not count (Queue C 20).
 """
 
 import sys
@@ -193,3 +197,41 @@ def test_train_step_moves_at_least_the_reckoned_bytes(dist_run, label):
     fwd = dist_run[0]["collectives"]["forward", label]["all"]
     assert sum(measured["bytes"].values()) - sum(fwd["bytes"].values()) \
         >= want["total"] - sum(want["forward"]["bytes"].values())
+
+
+def test_meshed_train_step_at_full_remat_equals_none(dist_run):
+    """The dense model's meshed train step at ``remat="full"``: each group's
+    body checkpointed around its ``on_shards`` and DTensor redistributes;
+    the parameters, loss and gradient norm equal the ``"none"`` step's bit
+    for bit."""
+    r = dist_run[0]["remat_full"]
+    assert r["params_equal"] and r["metrics_equal"], r
+
+
+def test_full_remat_reissues_the_group_collectives(dist_run):
+    """What the ``"full"`` step logs against the ``"none"`` step and the
+    reckoning: the forward issues the same collectives; the backward's
+    recompute issues a group's forward collectives again, so the step
+    moves more than the ``"none"`` step, by at most the forward's bytes
+    (the embedding lookup and the cross-entropy are not recomputed). The
+    reckoning (``dryrun.reckon_collectives``) counts no recompute
+    (ROADMAP Queue C)."""
+    got = dist_run[0]
+    full = got["remat_full"]["collectives"]
+    none = got["collectives"]["train", "dense"]
+    fwd = got["collectives"]["forward", "dense"]["all"]
+    assert full["forward"] == none["forward"]
+    extra = {k: full["all"]["bytes"][k] - none["all"]["bytes"].get(k, 0.0)
+             for k in full["all"]["bytes"]}
+    assert sum(extra.values()) > 0, (full, none)
+    for k, b in extra.items():
+        assert 0 <= b <= fwd["bytes"].get(k, 0.0), (k, extra, fwd)
+    reckoned = _reckoned("train", "dense")
+    assert sum(full["all"]["bytes"].values()) >= reckoned["total"]
+
+
+def test_alltoall_gradient_bit_for_bit_across_remat(dist_run):
+    """The MoE all-to-all path's cross-entropy gradient under the mesh at
+    ``remat`` "dots" and "full" equals the "none" one bit for bit: the
+    recompute redoes the routing and both exchanges."""
+    assert dist_run[0]["a2a_remat_equal"] == {"dots": True, "full": True}
