@@ -238,18 +238,25 @@ class Engine:
         self._spec_cache[op] = (gen, spec)
         return spec
 
-    def _ingest(self, imgs: Any) -> Tensor:
+    def _ingest(self, imgs: Any,
+                on_stage: Optional[Callable[[str, float, float],
+                                            None]] = None) -> Tensor:
         # a tensor on the engine's device passes through untouched; a tensor
         # elsewhere, and host data, are copied onto it (never run in place).
         # 64-bit integers keep their low 32 bits, as jnp.asarray does with
         # x64 off: host data before the copy, tensors on the device
+        t0 = time.monotonic()
         if isinstance(imgs, torch.Tensor):
-            return self._conform(imgs.to(self.device))
-        a = np.ascontiguousarray(imgs)
-        if not a.flags.writeable:
-            a = a.copy()
-        return self._conform(narrow_wide_ints(torch.from_numpy(a)).to(
-            self.device))
+            x = self._conform(imgs.to(self.device))
+        else:
+            a = np.ascontiguousarray(imgs)
+            if not a.flags.writeable:
+                a = a.copy()
+            x = self._conform(narrow_wide_ints(torch.from_numpy(a)).to(
+                self.device))
+        if on_stage is not None:
+            on_stage("ingest", t0, time.monotonic())
+        return x
 
     def _conform(self, x: Tensor) -> Tensor:
         """``x`` with 64-bit integers narrowed and the config's cast
@@ -269,9 +276,16 @@ class Engine:
                              f"{tuple(x.shape)}; use analyze_batch for stacks")
         return self._run(x[None], batched=False, op=op or self.op)
 
-    def analyze_batch(self, stack: Any, *, op: Optional[str] = None):
-        """A (B, H, W) stack in one device computation."""
-        x = self._ingest(stack)
+    def analyze_batch(self, stack: Any, *, op: Optional[str] = None,
+                      on_stage: Optional[Callable[[str, float, float],
+                                                  None]] = None):
+        """A (B, H, W) stack in one device computation.
+
+        ``on_stage(name, t0, t1)`` fires once, for ``"ingest"``, around
+        the copy onto the device (a copy from pageable host memory holds
+        the host for its length); the service and the bulk job time it.
+        """
+        x = self._ingest(stack, on_stage)
         if x.ndim != 3:
             raise ValueError(f"analyze_batch expects a (B, H, W) stack, "
                              f"got {tuple(x.shape)}")
@@ -332,13 +346,15 @@ class Engine:
         pad region between stages, so a bucket-padded batch stays
         bit-identical to issuing the stages as separate (cropped) submits;
         see :func:`_zero_pad_region`. ``on_stage(name, t0, t1)`` fires
-        after each stage's dispatch (launches are asynchronous, so the span
-        is the host's time to enqueue them); the service uses it for its
-        per-stage ``pipeline.<op>`` spans and stage histograms. Returns the
-        LAST stage's result.
+        for ``"ingest"`` around the copy onto the device, as in
+        ``analyze_batch``, then after each stage's dispatch (launches are
+        asynchronous, so the span is the host's time to enqueue them); the
+        service uses it for its ``scheduler.h2d`` and per-stage
+        ``pipeline.<op>`` spans and stage histograms. Returns the LAST
+        stage's result.
         """
         stages = engine_ops.validate_pipeline(stages)
-        x = self._ingest(stack)
+        x = self._ingest(stack, on_stage)
         if x.ndim != 3:
             raise ValueError(f"run_pipeline expects a (B, H, W) stack, got "
                              f"{tuple(x.shape)}")

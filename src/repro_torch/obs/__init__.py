@@ -33,6 +33,7 @@ from repro_torch.obs.trace import (
     auto_dump,
     configure,
     maybe_trace,
+    minor_faults,
     mono_to_wall_us,
     new_trace_id,
     recorder,
@@ -61,6 +62,7 @@ __all__ = [
     "auto_dump",
     "configure",
     "maybe_trace",
+    "minor_faults",
     "mono_to_wall_us",
     "new_trace_id",
     "recorder",

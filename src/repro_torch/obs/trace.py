@@ -32,6 +32,12 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+try:
+    import resource
+    _RUSAGE_THREAD = resource.RUSAGE_THREAD
+except (ImportError, AttributeError):  # no per-thread counter here
+    _RUSAGE_THREAD = None
+
 # One (wall, mono) epoch pair per process: chrome export maps a monotonic
 # timestamp t to wall-axis microseconds as (_WALL0 + (t - _MONO0)) * 1e6,
 # so traces from different processes share one timeline.
@@ -189,6 +195,19 @@ def maybe_trace(trace_id: Optional[str] = None,
     if not _STATE.enabled:
         return NULL_TRACE
     return Trace(trace_id, process=process)
+
+
+def minor_faults() -> int:
+    """Minor page faults of the calling thread so far (``getrusage`` with
+    ``RUSAGE_THREAD``), or 0 where the platform counts none per thread.
+
+    Spans over copies into fresh memory carry the difference across the
+    span as their ``minflt`` meta; callers read it only when the trace is
+    live, so tracing off costs no system call.
+    """
+    if _RUSAGE_THREAD is None:
+        return 0
+    return resource.getrusage(_RUSAGE_THREAD).ru_minflt
 
 
 def min_t1(t0: float, t1: float) -> float:

@@ -39,7 +39,7 @@ import numpy as np
 
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.engine import Engine
-from repro_torch.obs import NULL_TRACE, maybe_trace
+from repro_torch.obs import NULL_TRACE, maybe_trace, minor_faults
 from repro_torch.scene.granule import GranuleReader, GranuleSpec
 from repro_torch.scene.result import write_scene_result
 from repro_torch.scene.runner import (
@@ -209,14 +209,23 @@ class BulkJob:
                 if max_stacks is not None and stacks_done >= max_stacks:
                     return interrupted(gi, state)
                 n = min(cfg.stack_tiles, reader.n_tiles - state.next_tile)
+                live = tr.enabled
                 r0 = time.monotonic()
+                f0 = minor_faults() if live else 0
                 stack = reader.read_stack(state.next_tile, n)
                 r1 = time.monotonic()
+                faults = {"minflt": minor_faults() - f0} if live else {}
                 tr.add("scene.read", r0, r1, granule=spec.granule_id,
-                       tile=state.next_tile, tiles=n)
-                res = self.runner.engine.analyze_batch(stack)
+                       tile=state.next_tile, tiles=n, **faults)
+                # inside scene.compute: the engine's ingest copy, then the
+                # kernels' wait and the runs' copy back (runs_back)
+                res = self.runner.engine.analyze_batch(
+                    stack, on_stage=lambda _name, i0, i1: tr.add(
+                        "scene.ingest", i0, i1, granule=spec.granule_id))
+                b0 = time.monotonic()
                 runs = res.runs.cpu().numpy()
                 c1 = time.monotonic()
+                tr.add("scene.runs_back", b0, c1, granule=spec.granule_id)
                 tr.add("scene.compute", r1, c1, granule=spec.granule_id,
                        tiles=n)
                 self.runner.update(state, stack, runs)

@@ -42,7 +42,7 @@ CacheKey = Tuple[bytes, tuple, str, str, Any, Any, str]
 
 def make_key(mask: np.ndarray, backend: str, config: Hashable,
              mesh: Optional[Hashable] = None, *,
-             op: str = "ychg") -> CacheKey:
+             op: str = "ychg", data: Optional[bytes] = None) -> CacheKey:
     """Content-address a host mask under a resolved (backend, config) policy.
 
     ``mask`` must be C-contiguous (the service canonicalises on submit);
@@ -51,9 +51,13 @@ def make_key(mask: np.ndarray, backend: str, config: Hashable,
     results carry a different device layout than an unmeshed one, so the
     two must never serve each other's entries through a shared cache;
     ``op`` the operator (or ``"+"``-joined pipeline spec) the entry
-    answers for — the same mask under a different op is a different key.
+    answers for — the same mask under a different op is a different key;
+    ``data`` the mask's ``tobytes()`` where the caller already made it
+    (the service times that copy apart from the hash), else made here.
     """
-    digest = hashlib.blake2b(mask.tobytes(), digest_size=16).digest()
+    if data is None:
+        data = mask.tobytes()
+    digest = hashlib.blake2b(data, digest_size=16).digest()
     return (digest, mask.shape, str(mask.dtype), backend, config, mesh, op)
 
 

@@ -13,8 +13,9 @@ fleet router can roll worker pages up by plain summation. They hold
 *compute* completions only — cache hits are counted in
 ``completed_from_cache`` but never observed, so p50/p95 describe what a
 miss actually costs instead of averaging in the hit rate. Per-stage
-timings (cache probe, admission wait, queue wait, flush assembly, device
-compute, crop) land in a parallel family of stage histograms.
+timings (cache probe and its key copy and hash, admission wait, queue
+wait, flush assembly and its pad and copy, compute wait, crop) land in a
+parallel family of stage histograms.
 
 Mpx/s is real request pixels served over *active* time: each completion
 contributes the gap since the previous completion, capped at its own
@@ -44,11 +45,16 @@ HistSeries = Tuple[Tuple[LabelPairs, HistogramSnapshot], ...]
 # rollup never meet a surprise label.
 STAGES = (
     "cache_probe",   # content-key hash + local cache lookup
+    "key_copy",      # inside cache_probe: the mask's tobytes copy
+    "key_hash",      # inside cache_probe: blake2b over those bytes
     "peer_probe",    # sibling cache RPC on a local miss (peered only)
     "admission",     # admission-gate wait (block policy backpressure)
     "queue_wait",    # admitted -> batch assembly started
     "flush",         # pad_stack + device transfer + dispatch issue
-    "compute",       # device execution (dispatch -> block_until_ready)
+    "pad_stack",     # inside flush: the zero-padded host stack
+    "h2d",           # inside flush: the stack's copy onto the device
+    "compute",       # dispatch -> the dispatcher retires the job: a host
+                     # wait that includes the retire delay, not device time
     "crop",          # per-request result slicing off the padded batch
 )
 

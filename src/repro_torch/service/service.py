@@ -27,9 +27,10 @@ independently testable:
      or raises :class:`ServiceOverloaded` (shed);
   3. a **double-buffered dispatch loop**: up to ``inflight_buckets`` bucket
      computations are outstanding at once, so the batching work for bucket
-     n+1 overlaps the device compute of bucket n. The host-to-device copy
-     of a bucket is synchronous for now (pinned memory on a copy stream is
-     a later change). Completion waits on the result's CUDA event, fans
+     n+1 overlaps the device compute of bucket n. The host stack goes to
+     the engine, whose ingest copies it onto the device synchronously for
+     now (pinned memory on a copy stream is a later change). Completion
+     waits on the result's CUDA event, fans
      per-request cropped results out to futures, and records true
      submit->ready latency — cache hits are counted separately and never
      enter the latency window.
@@ -37,6 +38,13 @@ independently testable:
 The scheduler thread owns layers 2-3; ``submit`` only hashes, checks the
 cache, and enqueues, so the caller's thread never blocks on device work
 (unless backpressure deliberately blocks it at ``max_queue_depth``).
+
+Spans cut each host stage at its edges (docs/observability.md): the probe
+into ``cache.key_copy`` and ``cache.key_hash``, the flush into
+``scheduler.pad_stack`` and ``scheduler.h2d``, the launch being the rest.
+The copies into fresh memory carry their thread's minor page faults as
+``minflt``. A request that arrives at an empty service (no submit in
+progress, no leader) carries ``service.idle`` from the moment it emptied.
 """
 
 from __future__ import annotations
@@ -48,7 +56,6 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from repro_torch.engine import Engine, YCHGResult
 from repro_torch.engine.ops import (
@@ -57,7 +64,7 @@ from repro_torch.engine.ops import (
     split_pipeline_key,
     validate_pipeline,
 )
-from repro_torch.obs import NULL_TRACE, maybe_trace
+from repro_torch.obs import NULL_TRACE, maybe_trace, minor_faults
 from repro_torch.service.batching import (
     Bucket,
     crop_for,
@@ -269,6 +276,11 @@ class YCHGService:
         self._leaders: Dict[CacheKey, _Request] = {}
         self._lock = threading.Lock()
         self._closed = False
+        # submits between their probe's start and their leader's
+        # registration (or their return), and when the service last held
+        # no request at all (None while it holds one): under _lock
+        self._submitting = 0
+        self._idle_since: Optional[float] = time.monotonic()
         self._scene_progress: Optional[Any] = None
         self._scheduler = Scheduler(
             config.scheduler_config(),
@@ -358,14 +370,32 @@ class YCHGService:
             raise RuntimeError("service is closed")
         tr = trace if trace is not None else maybe_trace()
         own = trace is None
+        live = tr.enabled
         t_probe0 = time.monotonic()
-        a = np.ascontiguousarray(np.asarray(mask))
-        if a.ndim != 2:
-            raise ValueError(f"submit expects an (H, W) mask, got {a.shape}")
-        side = pick_bucket_side(a.shape, self.config.bucket_sides_for(op_key))
-        bucket = (op_key, side, str(a.dtype))
-        key = make_key(a, backend, self.engine.config,
-                       self.engine.mesh, op=op_key)
+        with self._lock:
+            self._submitting += 1
+            idle0, self._idle_since = self._idle_since, None
+        try:
+            f0 = minor_faults() if live else 0
+            a = np.ascontiguousarray(np.asarray(mask))
+            if a.ndim != 2:
+                raise ValueError(
+                    f"submit expects an (H, W) mask, got {a.shape}")
+            side = pick_bucket_side(a.shape,
+                                    self.config.bucket_sides_for(op_key))
+            bucket = (op_key, side, str(a.dtype))
+            data = a.tobytes()
+            t_copy = time.monotonic()
+            copy_meta = {"minflt": minor_faults() - f0} if live else {}
+            key = make_key(a, backend, self.engine.config,
+                           self.engine.mesh, op=op_key, data=data)
+            del data
+            t_hash = time.monotonic()
+        except BaseException:
+            with self._lock:
+                self._submitting -= 1
+                self._note_if_empty()
+            raise
         fut: "Future[YCHGResult]" = Future()
         cached = None
         outcome = "miss"
@@ -374,7 +404,9 @@ class YCHGService:
         # retirement: a duplicate always sees the leader or the cached
         # result, never the gap between them
         with self._lock:
+            self._submitting -= 1
             if self._closed:
+                self._note_if_empty()
                 raise RuntimeError("service is closed")
             cached = self.cache.get(key)
             if cached is not None:
@@ -394,10 +426,17 @@ class YCHGService:
                                    trace=tr, own_trace=own, klass=klass,
                                    deadline_ms=deadline_ms, tenant=tenant)
                     self._leaders[key] = req
+            self._note_if_empty()
         t_probe1 = time.monotonic()
         self._recorder.observe_stage("cache_probe", bucket,
                                      t_probe1 - t_probe0)
+        self._recorder.observe_stage("key_copy", bucket, t_copy - t_probe0)
+        self._recorder.observe_stage("key_hash", bucket, t_hash - t_copy)
+        if idle0 is not None:
+            tr.add("service.idle", idle0, t_probe0)
         tr.add("cache.probe", t_probe0, t_probe1, outcome=outcome)
+        tr.add("cache.key_copy", t_probe0, t_copy, **copy_meta)
+        tr.add("cache.key_hash", t_copy, t_hash)
         if outcome == "hit":
             fut.set_result(cached)
             if own:
@@ -428,6 +467,7 @@ class YCHGService:
             with self._lock:
                 self.cache.put(key, peered)
                 self._leaders.pop(key, None)
+                self._note_if_empty()
             # the leader + every rider that joined during the probe: all
             # served without consuming an admission slot (same rule as a
             # local cache hit); riders recorded their submits when they
@@ -449,6 +489,7 @@ class YCHGService:
         except BaseException as e:
             with self._lock:
                 self._leaders.pop(key, None)
+                self._note_if_empty()
             # once the leader is popped no more riders can join, so
             # req.futures is stable: fail fut + anyone who coalesced while
             # the leader waited at the gate, and back their submits out of
@@ -472,6 +513,14 @@ class YCHGService:
         # "accepted", so submitted - completed tracks real outstanding work
         self._recorder.record_submit()
         return fut
+
+    def _note_if_empty(self) -> None:
+        """Under ``_lock``: stamp the moment the service came to hold no
+        request (no submit in progress, no leader), which the next
+        submit's ``service.idle`` span starts from."""
+        if (not self._submitting and not self._leaders
+                and self._idle_since is None):
+            self._idle_since = time.monotonic()
 
     def analyze(self, mask: Any, timeout: Optional[float] = None, *,
                 op: Optional[str] = None) -> YCHGResult:
@@ -557,11 +606,30 @@ class YCHGService:
             if r.tenant is not None:
                 meta["tenant"] = r.tenant
             r.trace.add("scheduler.queue_wait", start, t0, **meta)
+        live = any(r.trace.enabled for r in requests)
+        p0 = time.monotonic()
+        f0 = minor_faults() if live else 0
         stack = pad_stack([r.mask for r in requests], side, batch_size,
                           np.dtype(dtype))
-        # host-to-device copy onto the engine's device (synchronous for
-        # now); the previous bucket's computation may still be in flight
-        x = torch.from_numpy(stack).to(self.engine.device)
+        p1 = time.monotonic()
+        pad_meta = {"minflt": minor_faults() - f0} if live else {}
+        self._recorder.observe_stage("pad_stack", bucket, p1 - p0)
+        for r in requests:
+            r.trace.add("scheduler.pad_stack", p0, p1, **pad_meta)
+
+        def _stage_span(name: str, s0: float, s1: float) -> None:
+            # the engine's copy of the host stack onto the device (its
+            # "ingest"; the previous bucket's computation may still be in
+            # flight), then for a pipeline one ``pipeline.<op>`` a stage:
+            # a span on every rider's trace and a stage histogram sample
+            if name == "ingest":
+                stage, span = "h2d", "scheduler.h2d"
+            else:
+                stage = span = f"pipeline.{name}"
+            self._recorder.observe_stage(stage, bucket, max(0.0, s1 - s0))
+            for r in requests:
+                r.trace.add(span, s0, s1)
+
         if PIPELINE_SEP in op_key:
             # per-request native (h, w) so each stage's output is re-zeroed
             # outside the request's canvas: exactly what a fresh pad of the
@@ -570,22 +638,12 @@ class YCHGService:
             hw = np.zeros((batch_size, 2), np.int32)
             for i, r in enumerate(requests):
                 hw[i] = r.mask.shape
-
-            def _stage_span(name: str, s0: float, s1: float) -> None:
-                # one ``pipeline.<op>`` span per stage on every rider's
-                # trace, plus a stage histogram keyed by the compound bucket
-                self._recorder.observe_stage(f"pipeline.{name}", bucket,
-                                             max(0.0, s1 - s0))
-                for r in requests:
-                    r.trace.add(f"pipeline.{name}", s0, s1)
-
             result = self.engine.run_pipeline(
-                x, split_pipeline_key(op_key), valid_hw=hw,
+                stack, split_pipeline_key(op_key), valid_hw=hw,
                 on_stage=_stage_span)
-        elif op_key == self.engine.op:
-            result = self.engine.analyze_batch(x)  # async launch
         else:
-            result = self.engine.analyze_batch(x, op=op_key)
+            result = self.engine.analyze_batch(  # async launch
+                stack, op=op_key, on_stage=_stage_span)
         t1 = time.monotonic()
         self._recorder.observe_stage("flush", bucket, t1 - t0)
         for r in requests:
@@ -618,6 +676,7 @@ class YCHGService:
                 with self._lock:
                     self.cache.put(req.key, out)
                     self._leaders.pop(req.key, None)
+                    self._note_if_empty()
                 tc1 = time.monotonic()
                 self._recorder.observe_stage("crop", req.bucket, tc1 - tc0)
                 self._recorder.record_complete(
@@ -641,6 +700,7 @@ class YCHGService:
         for req in requests:
             with self._lock:
                 self._leaders.pop(req.key, None)
+                self._note_if_empty()
             # span before the futures fire, same as _complete: a waiter
             # that owns this trace finishes it as soon as it unblocks
             req.trace.add("service.fail", now, now,

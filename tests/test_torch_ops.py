@@ -204,7 +204,7 @@ def test_run_pipeline_valid_hw_matches_jax(jax_engine):
         on_stage=lambda name, t0, t1: seen.append((name, t1 >= t0)))
     want = jax_engine.run_pipeline(stack, ["denoise", "ychg"], valid_hw=hw)
     assert_host_matches(got.to_host(), want.to_host(), True)
-    assert seen == [("denoise", True), ("ychg", True)]
+    assert seen == [("ingest", True), ("denoise", True), ("ychg", True)]
 
 
 def test_run_pipeline_equals_sequential_dispatch():

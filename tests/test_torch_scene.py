@@ -373,6 +373,47 @@ def test_bulk_job_gc_noop_rerun_and_bad_manifests(tmp_path):
         _job(tmp_path, "w", wider).run()
 
 
+def test_bulk_job_cuts_compute_into_ingest_then_runs_back(tmp_path):
+    """One granule trace: a ``scene.read`` with its ``minflt`` count, then
+    ``scene.compute`` holding ``scene.ingest`` then ``scene.runs_back``,
+    a stack each; tracing off, the job leaves no trace and the same
+    bytes."""
+    from repro_torch import obs
+
+    path = os.path.join(tmp_path, "mm.npy")
+    np.save(path, scenes.scene(27, 19, seed=4, cell=4))
+    manifest = [GranuleSpec(granule_id="mm", height=27, width=19,
+                            kind="memmap", path=path)]
+    was = obs.tracing_enabled()
+    obs.recorder().clear()
+    try:
+        obs.configure(enabled=True)
+        report = _job(tmp_path, "on", manifest, stack_tiles=2).run()
+        traces = [t for t in obs.recorder().traces() if t.process == "scene"]
+        obs.recorder().clear()
+        obs.configure(enabled=False)
+        assert _job(tmp_path, "off", manifest, stack_tiles=2).run().completed
+        assert obs.recorder().traces() == []
+    finally:
+        obs.configure(enabled=was)
+    assert report.completed and report.stacks_done == 2
+    assert _outputs(tmp_path, "on", manifest) == _outputs(tmp_path, "off",
+                                                          manifest)
+    (tr,) = traces
+    spans = {}
+    for name, t0, t1, meta in tr.spans():
+        spans.setdefault(name, []).append((t0, t1, meta))
+    reads, computes, ingests, backs = (
+        sorted(spans[n], key=lambda s: s[0]) for n in (
+            "scene.read", "scene.compute", "scene.ingest",
+            "scene.runs_back"))
+    assert len(reads) == len(computes) == len(ingests) == len(backs) == 2
+    for (r0, r1, rm), (c0, c1, _), (i0, i1, _), (b0, b1, _) in zip(
+            reads, computes, ingests, backs):
+        assert r0 <= r1 <= c0 <= i0 <= i1 <= b0 <= b1 <= c1
+        assert isinstance(rm["minflt"], int) and rm["minflt"] >= 0
+
+
 # -------------------------------------------- online/offline (loopback)
 
 
