@@ -253,6 +253,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
+import gc
 import glob
 import json
 import math
@@ -333,6 +334,12 @@ MESH_REPEAT, MESH_RAGGED_B = 3, 5
 MESH_BACKENDS = {"ychg": "fused", "ccl": "cuda", "denoise": "cuda"}
 FLEET_BACKENDS = dict(MESH_BACKENDS)
 SLO_RES, SLO_BATCH = 1024, 4
+# the service's digest kernel: the serve cells' bucket sides (uint8), the
+# wide dtypes at one side, and lengths at the tree's edges (one leaf, one
+# inner node, a partial last leaf, four levels)
+KEYHASH_SIDES = (1024, 2048, 4096, 8192)
+KEYHASH_WIDE_SIDE = 2048
+KEYHASH_LENGTHS = (0, 1, 4095, 4097, 128 * 4096 + 1, 128 * 128 * 4096 + 5)
 PAPER_MAX_RES = 12000      # the paper's comparison: resolutions up to this
 
 
@@ -2996,6 +3003,10 @@ def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
         return {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
     def allocated() -> int:
+        # earlier phases' services are freed by the garbage collector (a
+        # service and its scheduler refer to each other), and a collection
+        # inside a cell's window would read as the cell freeing memory
+        gc.collect()
         torch.cuda.synchronize()
         return torch.cuda.memory_allocated()
 
@@ -3213,6 +3224,89 @@ def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
     return launches
 
 
+def keyhash_leg(np, torch, card: str) -> dict:
+    """The service's digest kernel (``kernels.keyhash``) against its plain
+    version, hashlib's tree node by node: uint8 masks at each bucket side,
+    float32 and int64 masks, and lengths at the tree's edges, each bit for
+    bit. At each side, the wrapper's time by CUDA events (launch, the 16
+    bytes back, the stream's synchronisation), the kernel's device time
+    from a torch.profiler trace, the plain version's host time, the
+    bound, and the pageable copy that brings the mask to the card (the
+    service's ``cache.key_copy``)."""
+    from repro_torch.kernels import keyhash as kkh
+    from repro_torch.launch.roofline import bound_ms
+
+    kkh.reset_launch_counts()
+    rng = np.random.default_rng(20130611)
+    rows = []
+    for side in KEYHASH_SIDES:
+        m = (rng.random((side, side)) < 0.5).astype(np.uint8)
+        x = torch.from_numpy(m).to(DEV)
+        want = kkh.digest_host(m)
+        check(kkh.launch(x) == want,
+              f"keyhash differs from hashlib's tree at {side}^2 uint8")
+        t0 = time.perf_counter()
+        kkh.digest_host(m)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        device_ms, seen = kernel_device_ms(lambda: kkh.launch(x),
+                                           ("keyhash_kernel",))
+        if seen != 20:
+            # a trace of these launches, each waiting for its stream, once
+            # lost 5 of its 20 kernel records on the card: trace again
+            print(f"keyhash: the trace saw {seen} of 20 launches at "
+                  f"{side}^2; traced again", flush=True)
+            device_ms, seen = kernel_device_ms(lambda: kkh.launch(x),
+                                               ("keyhash_kernel",))
+        check(seen == 20, f"the trace saw {seen} keyhash launches, want 20")
+        row = {"shape": [side, side], "ms": time_ms(lambda: kkh.launch(x)),
+               "device_ms": device_ms, "plain_ms": plain_ms,
+               "copy_ms": time_ms(lambda: torch.from_numpy(m).to(DEV),
+                                  samples=5, reps=2)}
+        row["bound_ms"], row["bound_by"] = bound_ms(*kkh.work(m.nbytes))
+        rows.append(row)
+        print(f"time: keyhash {side}^2 uint8 {row['ms']:.4f} ms through "
+              f"its wrapper, {device_ms:.4f} ms on the device, "
+              f"{100 * row['bound_ms'] / device_ms:.1f}% of its bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}); plain "
+              f"{plain_ms:.1f} ms on the host; the copy onto the card "
+              f"{row['copy_ms']:.3f} ms; on {card}", flush=True)
+        del x
+    for dtype in (np.float32, np.int64):
+        m = (rng.random((KEYHASH_WIDE_SIDE,) * 2) * 2**40).astype(dtype)
+        check(kkh.launch(torch.from_numpy(m).to(DEV)) == kkh.digest_host(m),
+              f"keyhash differs from hashlib's tree on {np.dtype(dtype)}")
+    for n in KEYHASH_LENGTHS:
+        b = rng.integers(0, 256, n, dtype=np.uint8)
+        check(kkh.launch(torch.from_numpy(b).to(DEV)) == kkh.digest_host(b),
+              f"keyhash differs from hashlib's tree at {n} bytes")
+    out = {"rows": rows, "launches": kkh.LAUNCHES["keyhash"],
+           "lengths": list(KEYHASH_LENGTHS)}
+    print("keyhash: " + json.dumps(out), flush=True)
+    return out
+
+
+def check_keyed(label: str, hits: int, misses: int, on_device: int,
+                on_host: int, launched=None) -> int:
+    """Every cache probe of a service (its hits and misses) keyed where its
+    engine says: on the card when DEV is CUDA (one ``keyhash`` launch a
+    probe, where the launches are counted in this process, and none on the
+    host), on the host otherwise. Returns the probes."""
+    probes = hits + misses
+    want = probes if DEV == "cuda" else 0
+    check(probes > 0 and on_device == want and on_host == probes - want
+          and launched in (None, want),
+          f"{label}: {probes} probes, {on_device} keyed on the card, "
+          f"{on_host} on the host, {launched} keyhash launches; want "
+          f"{want} on the card")
+    return probes
+
+
+def metrics_keyed(label: str, m, launched: int) -> int:
+    """:func:`check_keyed` on a service's metrics snapshot."""
+    return check_keyed(label, m.cache_hits, m.cache_misses, m.keys_on_device,
+                       m.keys_on_host, launched)
+
+
 def main() -> int:
     # cuBLAS is deterministic with this workspace setting, which phase 9's
     # resume check needs under torch.use_deterministic_algorithms; it must
@@ -3244,6 +3338,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import ccl as kccl
     from repro_torch.kernels import denoise as kdn
+    from repro_torch.kernels import keyhash as kkh
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ychg_colscan as kc
     from repro_torch.kernels import ychg_fused as kf
@@ -3299,7 +3394,8 @@ def main() -> int:
 
     # 2. the build
     t0 = time.perf_counter()
-    sources = ["ychg_fused", "ychg_colscan", "denoise", "ccl", "ychg_packed"]
+    sources = ["ychg_fused", "ychg_colscan", "denoise", "ccl", "ychg_packed",
+               "keyhash"]
     seconds = _build.build(sources)
     print(f"build: {json.dumps(seconds)} in "
           f"{time.perf_counter() - t0:.1f} s wall", flush=True)
@@ -3832,9 +3928,16 @@ def main() -> int:
     del scene_packed, lone_packed
     free()
 
+    # the service's digest kernel against its plain version, timed
+    keyhash_leg(np, torch, card)
+    free()
+
     # 4. the main path, counted from zero
-    for module in (kf, kc, kdn, kccl, kp):
+    for module in (kf, kc, kdn, kccl, kp, kkh):
         module.reset_launch_counts()
+    # probes of the services below, each keyed on the card (checked leg by
+    # leg against the keyhash launches the leg made)
+    keyed = {}
     registry.reset_call_counts()
     engine = Engine()
     torch_engine = Engine(EngineConfig(backend="torch"))
@@ -3918,11 +4021,14 @@ def main() -> int:
             ("ychg", EngineConfig(backend="cuda"), "cuda"),
             ("ccl", EngineConfig(), "cuda"),
             ("denoise", EngineConfig(), "cuda")]:
+        k0 = kkh.LAUNCHES["keyhash"]
         report = serve_passes(Engine(config), serve_masks[:SERVE_BATCH],
                               serve_masks[SERVE_BATCH:], op=op)
         check(report.backend == want_backend,
               f"{op} service backend {report.backend!r}")
         label = f"{op}[{want_backend}]"
+        keyed[f"serve {label}"] = metrics_keyed(
+            f"serve {label}", report.metrics, kkh.LAUNCHES["keyhash"] - k0)
         served = 0
         for outs, masks in [(report.cold, serve_masks[:SERVE_BATCH]),
                             (report.warm, serve_masks[SERVE_BATCH:]),
@@ -3950,7 +4056,10 @@ def main() -> int:
         del report
         free()
 
+    k0 = kkh.LAUNCHES["keyhash"]
     prep = pipeline_pass(Engine(), float_masks, ("denoise", "ychg"))
+    keyed["serve denoise+ychg"] = metrics_keyed(
+        "serve denoise+ychg", prep.metrics, kkh.LAUNCHES["keyhash"] - k0)
     check(prep.backend == "cuda+fused",
           f"pipeline service backends {prep.backend!r}")
     for i, (res, mask) in enumerate(zip(prep.results, float_masks)):
@@ -3972,7 +4081,14 @@ def main() -> int:
 
     burst = [np.roll(mk, s, axis=1) for s in (1, 2)
              for mk in serve_masks]
+    k0 = kkh.LAUNCHES["keyhash"]
     admitted, shed = overload_pass(engine, burst, max_batch=SERVE_BATCH)
+    # every submit is keyed before admission, the shed ones too
+    launched = kkh.LAUNCHES["keyhash"] - k0
+    want = len(burst) if DEV == "cuda" else 0
+    check(launched == want, f"overload: {launched} keyhash launches for a "
+          f"burst of {len(burst)}, want {want}")
+    keyed["overload"] = len(burst)
     print(f"overload: burst of {len(burst)}: {admitted} admitted, {shed} "
           f"shed", flush=True)
 
@@ -4122,6 +4238,7 @@ def main() -> int:
     fe_big = crop(serve_masks[SERVE_BATCH], FRONTEND_BIG_RES)
     fe_ccl = crop(serve_masks[SERVE_BATCH + 1], FRONTEND_RES)
     fe_noisy = [crop(m, FRONTEND_RES) for m in float_masks[:2]]
+    k0 = kkh.LAUNCHES["keyhash"]
     with YCHGService(cuda_engine, fe_config) as svc, \
             ServerThread(svc) as srv, \
             YCHGClient("127.0.0.1", srv.port) as client:
@@ -4153,6 +4270,8 @@ def main() -> int:
         ref = ychg.analyze(kdn.denoise_plain(x)[0])
         wire_equal(got, {f: getattr(ref, f) for f in fields}, "/v1/pipeline")
         lat_count = check_metrics_page(client.metrics_text())
+        keyed["frontend"] = metrics_keyed(
+            "frontend", svc.metrics(), kkh.LAUNCHES["keyhash"] - k0)
     del items, got, want, x, ref
     retry = overload_over_wire(cuda_engine, fe_config, fe_batch[0],
                                fe_batch[1])
@@ -4181,9 +4300,18 @@ def main() -> int:
     free()
 
     launches = {**kf.LAUNCHES, **kc.LAUNCHES, **kdn.LAUNCHES, **kccl.LAUNCHES,
-                **kp.LAUNCHES}
+                **kp.LAUNCHES, **kkh.LAUNCHES}
     for name in KERNELS:
         check(launches[name] > 0, f"the main path launched {name} no time")
+    # the legs checked above, the wire's overload leg and the op smoke
+    check(launches["keyhash"] >= (sum(keyed.values()) if DEV == "cuda"
+                                  else 0),
+          f"the main path launched keyhash {launches['keyhash']} times, "
+          f"fewer than its checked legs' probes {json.dumps(keyed)}")
+    print(f"keyed on the main path: {launches['keyhash']} keyhash launches; "
+          f"every probe of these legs keyed "
+          f"{'on the card' if DEV == 'cuda' else 'on the host'}: "
+          f"{json.dumps(keyed)}", flush=True)
     calls = {op: {b: registry.call_count(b, op) for b in
                   registry.backend_names(op)} for op in registry.registered_ops()}
     print(f"launches on the main path: {json.dumps(launches)}; backend "
@@ -4339,12 +4467,17 @@ def main() -> int:
                 got = (client.pipeline(m, stages) if stages
                        else client.analyze(m, op=op))
                 wire_same(got, want, f"fleet {path}")
-            served = {}
+            served, worker_keys = {}, {}
             for link in links:
                 with YCHGClient(link.host, link.http_port) as wc:
-                    served[link.name] = counter(
-                        parse_prom_text(wc.metrics_text()),
-                        "ychg_completed_total")
+                    wpage = parse_prom_text(wc.metrics_text())
+                served[link.name] = counter(wpage, "ychg_completed_total")
+                # each worker keyed every probe on the card
+                worker_keys[link.name] = check_keyed(
+                    f"fleet worker {link.name}",
+                    *(counter(wpage, f"ychg_{name}_total") for name in (
+                        "cache_hits", "cache_misses", "keys_on_device",
+                        "keys_on_host")))
             check(all(n > 0 for n in served.values()),
                   f"fleet: a worker served nothing: {served}")
             page = parse_prom_text(client.metrics_text())
@@ -4363,7 +4496,9 @@ def main() -> int:
                   f"{FRONTEND_RES}^2 byte-identical to an in-process "
                   f"Service(Engine()); completed per worker "
                   f"{json.dumps(served)}; rolled-up dispatches "
-                  f"{json.dumps(dispatches)}", flush=True)
+                  f"{json.dumps(dispatches)}; probes per worker, every one "
+                  f"keyed {'on the card' if DEV == 'cuda' else 'on the host'}"
+                  f" {json.dumps(worker_keys)}", flush=True)
 
             t0 = time.perf_counter()
             items = list(client.analyze_batch(fe_timed))

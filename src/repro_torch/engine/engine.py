@@ -162,6 +162,17 @@ def _zero_pad_region(x: Tensor, valid_hw: Tensor) -> Tensor:
                                             device=x.device))
 
 
+def host_tensor(imgs: Any) -> Tensor:
+    """Host data as a CPU tensor over its C-contiguous array, which it
+    shares (copied only where it is not C-contiguous or not writable,
+    since torch has no read-only tensor): what a copy onto the device
+    starts from, from pageable memory."""
+    a = np.ascontiguousarray(imgs)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a)
+
+
 def _numpy_dtype_to_torch(name: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
 
@@ -249,10 +260,7 @@ class Engine:
         if isinstance(imgs, torch.Tensor):
             x = self._conform(imgs.to(self.device))
         else:
-            a = np.ascontiguousarray(imgs)
-            if not a.flags.writeable:
-                a = a.copy()
-            x = self._conform(narrow_wide_ints(torch.from_numpy(a)).to(
+            x = self._conform(narrow_wide_ints(host_tensor(imgs)).to(
                 self.device))
         if on_stage is not None:
             on_stage("ingest", t0, time.monotonic())

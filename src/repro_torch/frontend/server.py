@@ -459,6 +459,10 @@ class FrontendServer:
                   "local misses served by a sibling's cache")
         b.counter("ychg_cache_peer_misses_total", m.peer_misses,
                   "outbound peer probes no sibling could answer")
+        b.counter("ychg_keys_on_device_total", m.keys_on_device,
+                  "cache probes whose content digest was taken on the card")
+        b.counter("ychg_keys_on_host_total", m.keys_on_host,
+                  "cache probes whose content digest was taken on the host")
         b.header("ychg_shed_bucket_total", "counter",
                  "sheds attributed to the rejected request's bucket")
         for bucket, count in m.shed_by_bucket:

@@ -64,6 +64,30 @@ def pad_stack(masks: Sequence[np.ndarray], side: int, batch: int,
     return stack
 
 
+def pad_stack_device(masks: Sequence[torch.Tensor], side: int,
+                     batch: int) -> torch.Tensor:
+    """:func:`pad_stack` for masks already on the device: a zero-padded
+    (batch, side, side) stack of their dtype on their device.
+
+    Only the pad region is zeroed (below and right of each mask, and the
+    blank trailing images), and the copies run as bytes, so every dtype
+    pads alike, bool and the 64-bit integers included. Runs on the current
+    stream.
+    """
+    first = masks[0]
+    item = first.element_size()
+    stack = torch.empty((batch, side, side * item), dtype=torch.uint8,
+                        device=first.device)
+    for i, m in enumerate(masks):
+        h, w = m.shape
+        if m.numel():
+            stack[i, :h, :w * item].copy_(m.contiguous().view(torch.uint8))
+        stack[i, :h, w * item:].zero_()
+        stack[i, h:].zero_()
+    stack[len(masks):].zero_()
+    return stack.view(first.dtype)
+
+
 def crop_result(batched: YCHGResult, row: int, width: int) -> YCHGResult:
     """Request ``row`` of a bucket result, cropped to its native width.
 

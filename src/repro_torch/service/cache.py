@@ -2,8 +2,15 @@
 
 The key is a pure function of everything that determines the answer:
 
-  (blake2b(mask bytes), shape, dtype, resolved backend name, engine config,
+  (digest(mask bytes), shape, dtype, resolved backend name, engine config,
    mesh, op)
+
+The digest is BLAKE2b's tree mode over the bytes as submitted
+(``kernels.keyhash``, one definition): a CUDA engine's service computes it
+on the card from the copy it makes there anyway, every other caller (CPU
+and meshed engines, the fleet router) on the host with ``hashlib``, and
+the two agree bit for bit, so keys agree across workers, the router and
+the tests.
 
 Shape and dtype are part of the key because the raw byte string does not
 determine them — the same 32 bytes are a (4, 8) or an (8, 4) mask, and an
@@ -30,19 +37,20 @@ through one cache or a shared serialized key space.
 from __future__ import annotations
 
 import dataclasses
-import hashlib
 import threading
 from collections import OrderedDict
 from typing import Any, Dict, Hashable, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.kernels import keyhash
+
 CacheKey = Tuple[bytes, tuple, str, str, Any, Any, str]
 
 
 def make_key(mask: np.ndarray, backend: str, config: Hashable,
              mesh: Optional[Hashable] = None, *,
-             op: str = "ychg", data: Optional[bytes] = None) -> CacheKey:
+             op: str = "ychg", digest: Optional[bytes] = None) -> CacheKey:
     """Content-address a host mask under a resolved (backend, config) policy.
 
     ``mask`` must be C-contiguous (the service canonicalises on submit);
@@ -52,12 +60,12 @@ def make_key(mask: np.ndarray, backend: str, config: Hashable,
     two must never serve each other's entries through a shared cache;
     ``op`` the operator (or ``"+"``-joined pipeline spec) the entry
     answers for — the same mask under a different op is a different key;
-    ``data`` the mask's ``tobytes()`` where the caller already made it
-    (the service times that copy apart from the hash), else made here.
+    ``digest`` the tree digest of the mask's bytes where the caller
+    already took it (the service, on the card), else taken here on the
+    host (:func:`repro_torch.kernels.keyhash.digest`, no copy).
     """
-    if data is None:
-        data = mask.tobytes()
-    digest = hashlib.blake2b(data, digest_size=16).digest()
+    if digest is None:
+        digest = keyhash.digest(mask)
     return (digest, mask.shape, str(mask.dtype), backend, config, mesh, op)
 
 
@@ -97,14 +105,15 @@ def serialize_key(key: CacheKey) -> bytes:
     worker, across restarts (``tests/test_fleet.py`` pins this with a
     different-PYTHONHASHSEED subprocess). Components are length-prefixed
     so no two distinct keys can collide by concatenation, and the format
-    is VERSIONED: v2 added the length-prefixed ``op`` component, and the
-    bumped prefix means a v1 worker and a v2 worker in a mixed-version
-    fleet can never alias each other's entries — every v2 key differs
-    from every v1 key in its first component.
+    is VERSIONED: v2 added the length-prefixed ``op`` component, v3 made
+    the digest BLAKE2b's tree mode, and each bumped prefix means workers
+    of two versions in a mixed-version fleet can never alias each other's
+    entries — every key of one version differs from every key of another
+    in its first component.
     """
     digest, shape, dtype, backend, config, mesh, op = key
     parts = (
-        b"ychg-key-v2",
+        b"ychg-key-v3",
         _canon(op),
         digest,
         "x".join(str(int(s)) for s in shape).encode(),

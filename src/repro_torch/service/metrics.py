@@ -45,14 +45,18 @@ HistSeries = Tuple[Tuple[LabelPairs, HistogramSnapshot], ...]
 # rollup never meet a surprise label.
 STAGES = (
     "cache_probe",   # content-key hash + local cache lookup
-    "key_copy",      # inside cache_probe: the mask's tobytes copy
-    "key_hash",      # inside cache_probe: blake2b over those bytes
+    "key_copy",      # inside cache_probe: the mask's copy onto the device
+                     # (CUDA engines; on the host path only the contiguous
+                     # view)
+    "key_hash",      # inside cache_probe: the tree digest of its bytes
     "peer_probe",    # sibling cache RPC on a local miss (peered only)
     "admission",     # admission-gate wait (block policy backpressure)
     "queue_wait",    # admitted -> batch assembly started
     "flush",         # pad_stack + device transfer + dispatch issue
-    "pad_stack",     # inside flush: the zero-padded host stack
-    "h2d",           # inside flush: the stack's copy onto the device
+    "pad_stack",     # inside flush: the zero-padded stack (on the device
+                     # when the masks are there, else on the host)
+    "h2d",           # inside flush: the stack's copy onto the device (a
+                     # pass-through when it is there already)
     "compute",       # dispatch -> the dispatcher retires the job: a host
                      # wait that includes the retire delay, not device time
     "crop",          # per-request result slicing off the padded batch
@@ -106,6 +110,10 @@ class ServiceMetrics:
     shed_by_bucket: Tuple[Tuple[Any, int], ...] = ()
     peer_hits: int = 0        # local misses served by a sibling's cache
     peer_misses: int = 0      # outbound probes no sibling could answer
+    # probes whose content digest was taken on the card (a CUDA engine
+    # without a mesh) and on the host (every other engine)
+    keys_on_device: int = 0
+    keys_on_host: int = 0
     # traffic-class/tenant attribution (docs/traffic.md): every shed also
     # lands in shed_by_class; quota sheds additionally in shed_by_tenant;
     # shed_deadline/shed_quota split the total by the check that tripped
@@ -152,6 +160,8 @@ class MetricsRecorder:
         self.completed_from_cache = 0
         self.coalesced = 0
         self.batches = 0
+        self.keys_on_device = 0
+        self.keys_on_host = 0
         self._latency_hists: Dict[Any, Histogram] = {}
         self._stage_hists: Dict[Tuple[str, Any, Optional[str]],
                                 Histogram] = {}
@@ -179,6 +189,14 @@ class MetricsRecorder:
             self.submitted += 1
             if self._t_first is None:
                 self._t_first = time.monotonic()
+
+    def record_key(self, on_device: bool) -> None:
+        """One probe's digest taken, on the card or on the host."""
+        with self._lock:
+            if on_device:
+                self.keys_on_device += 1
+            else:
+                self.keys_on_host += 1
 
     def record_coalesced(self) -> None:
         with self._lock:
@@ -310,6 +328,8 @@ class MetricsRecorder:
                 shed_quota=shed_quota,
                 peer_hits=peer_hits,
                 peer_misses=peer_misses,
+                keys_on_device=self.keys_on_device,
+                keys_on_host=self.keys_on_host,
                 scene_tiles_done=scene_tiles_done,
                 scene_tiles_total=scene_tiles_total,
                 scene_resumes=scene_resumes,

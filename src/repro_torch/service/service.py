@@ -27,21 +27,44 @@ independently testable:
      or raises :class:`ServiceOverloaded` (shed);
   3. a **double-buffered dispatch loop**: up to ``inflight_buckets`` bucket
      computations are outstanding at once, so the batching work for bucket
-     n+1 overlaps the device compute of bucket n. The host stack goes to
-     the engine, whose ingest copies it onto the device synchronously for
-     now (pinned memory on a copy stream is a later change). Completion
+     n+1 overlaps the device compute of bucket n. On a CUDA engine without
+     a mesh the masks are on the card already (see below) and the stack is
+     padded there; on any other engine the host stack goes to the engine,
+     whose ingest copies it onto the device. Completion
      waits on the result's CUDA event, fans
      per-request cropped results out to futures, and records true
      submit->ready latency — cache hits are counted separately and never
      enter the latency window.
 
-The scheduler thread owns layers 2-3; ``submit`` only hashes, checks the
-cache, and enqueues, so the caller's thread never blocks on device work
-(unless backpressure deliberately blocks it at ``max_queue_depth``).
+The scheduler thread owns layers 2-3; ``submit`` only keys, checks the
+cache, and enqueues, so the caller's thread never blocks on the
+dispatcher's device work (unless backpressure deliberately blocks it at
+``max_queue_depth``).
+
+The key's content digest (``service.cache``, ``kernels.keyhash``) is taken
+where the engine's device says: a CUDA engine without a mesh copies the
+mask onto the card on the submitting thread, on a CUDA stream of that
+thread's own, and digests the copy there with the ``keyhash`` kernel; the
+request then carries the device tensor, and the flush pads on the card
+(``batching.pad_stack_device``), with nothing left to copy. Every other
+engine (the CPU, a meshed engine) digests the host array with ``hashlib``
+and pads on the host. The two digests are one definition, bit for bit.
+So on a CUDA engine a backlog lives in device memory: one copy of the mask
+for each request from its submit until its batch's result is ready, for
+those admitted and for the producers parked at the admission gate alike.
+``max_queue_depth`` (or ``bucket_queue_depth``) bounds the admitted ones,
+the callers' threads the rest (one a thread); with neither bound the
+device memory grows with the queue (docs/traffic.md). A bound matters for
+the rate too: a copy from pageable memory holds the CUDA driver, and
+submitting threads whose copies follow one another without a pause keep
+the scheduler thread's device calls waiting, for seconds on an H100; a
+producer parked at a bound makes no copy.
 
 Spans cut each host stage at its edges (docs/observability.md): the probe
-into ``cache.key_copy`` and ``cache.key_hash``, the flush into
-``scheduler.pad_stack`` and ``scheduler.h2d``, the launch being the rest.
+into ``cache.key_copy`` (the copy onto the card, where there is one) and
+``cache.key_hash`` (its ``where`` meta says ``device`` or ``host``), the
+flush into ``scheduler.pad_stack`` and ``scheduler.h2d``, the launch being
+the rest.
 The copies into fresh memory carry their thread's minor page faults as
 ``minflt``. A request that arrives at an empty service (no submit in
 progress, no leader) carries ``service.idle`` from the moment it emptied.
@@ -56,19 +79,23 @@ from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.engine import Engine, YCHGResult
+from repro_torch.engine.engine import host_tensor
 from repro_torch.engine.ops import (
     PIPELINE_SEP,
     pipeline_op_key,
     split_pipeline_key,
     validate_pipeline,
 )
+from repro_torch.kernels import keyhash
 from repro_torch.obs import NULL_TRACE, maybe_trace, minor_faults
 from repro_torch.service.batching import (
     Bucket,
     crop_for,
     pad_stack,
+    pad_stack_device,
     pick_bucket_side,
 )
 from repro_torch.service.cache import CacheKey, ResultCache, make_key
@@ -244,6 +271,12 @@ class _Request:
     klass: Optional[str] = None
     deadline_ms: Optional[float] = None
     tenant: Optional[str] = None
+    # the mask's copy on the card, where it was keyed there. The flush pads
+    # from it on the dispatcher's stream; it is let go once the batch's
+    # result is ready (or that stream has drained, on a failure), so that
+    # its block, allocated on the submitter's stream, is never handed out
+    # again while the pad may still read it
+    dev: Optional[torch.Tensor] = None
 
 
 class YCHGService:
@@ -282,6 +315,13 @@ class YCHGService:
         self._submitting = 0
         self._idle_since: Optional[float] = time.monotonic()
         self._scene_progress: Optional[Any] = None
+        # where submits key: on the engine's card when it is a CUDA device
+        # and no mesh splits the stacks, else on the host; and the CUDA
+        # stream of each submitting thread there
+        eng = self.engine
+        self._key_device = (eng.device if eng.device.type == "cuda"
+                            and eng.mesh is None else None)
+        self._streams = threading.local()
         self._scheduler = Scheduler(
             config.scheduler_config(),
             dispatch=self._dispatch,
@@ -375,6 +415,10 @@ class YCHGService:
         with self._lock:
             self._submitting += 1
             idle0, self._idle_since = self._idle_since, None
+        # the mask's copy on the card, if it is keyed there: every raise
+        # below lets it go first, since a raised exception's traceback keeps
+        # this frame, and so its locals, for as long as the caller keeps it
+        dev = None
         try:
             f0 = minor_faults() if live else 0
             a = np.ascontiguousarray(np.asarray(mask))
@@ -384,18 +428,31 @@ class YCHGService:
             side = pick_bucket_side(a.shape,
                                     self.config.bucket_sides_for(op_key))
             bucket = (op_key, side, str(a.dtype))
-            data = a.tobytes()
-            t_copy = time.monotonic()
-            copy_meta = {"minflt": minor_faults() - f0} if live else {}
-            key = make_key(a, backend, self.engine.config,
-                           self.engine.mesh, op=op_key, data=data)
-            del data
+            if self._key_device is not None:
+                # the one copy onto the card, then its digest there, on
+                # this thread's stream, which the kernel's wrapper waits
+                # for (and for no other)
+                with torch.cuda.stream(self._submit_stream()):
+                    dev = host_tensor(a).to(self._key_device)
+                    t_copy = time.monotonic()
+                    copy_meta = ({"minflt": minor_faults() - f0} if live
+                                 else {})
+                    digest = keyhash.digest(dev)
+            else:
+                t_copy = time.monotonic()
+                copy_meta = ({"minflt": minor_faults() - f0} if live
+                             else {})
+                digest = keyhash.digest(a)
             t_hash = time.monotonic()
+            key = make_key(a, backend, self.engine.config,
+                           self.engine.mesh, op=op_key, digest=digest)
         except BaseException:
+            dev = None
             with self._lock:
                 self._submitting -= 1
                 self._note_if_empty()
             raise
+        self._recorder.record_key(dev is not None)
         fut: "Future[YCHGResult]" = Future()
         cached = None
         outcome = "miss"
@@ -407,6 +464,7 @@ class YCHGService:
             self._submitting -= 1
             if self._closed:
                 self._note_if_empty()
+                dev = None
                 raise RuntimeError("service is closed")
             cached = self.cache.get(key)
             if cached is not None:
@@ -424,7 +482,8 @@ class YCHGService:
                     req = _Request(mask=a, key=key, bucket=bucket,
                                    t_submit=time.monotonic(), futures=[fut],
                                    trace=tr, own_trace=own, klass=klass,
-                                   deadline_ms=deadline_ms, tenant=tenant)
+                                   deadline_ms=deadline_ms, tenant=tenant,
+                                   dev=dev)
                     self._leaders[key] = req
             self._note_if_empty()
         t_probe1 = time.monotonic()
@@ -436,7 +495,8 @@ class YCHGService:
             tr.add("service.idle", idle0, t_probe0)
         tr.add("cache.probe", t_probe0, t_probe1, outcome=outcome)
         tr.add("cache.key_copy", t_probe0, t_copy, **copy_meta)
-        tr.add("cache.key_hash", t_copy, t_hash)
+        tr.add("cache.key_hash", t_copy, t_hash,
+               where="device" if dev is not None else "host")
         if outcome == "hit":
             fut.set_result(cached)
             if own:
@@ -487,6 +547,7 @@ class YCHGService:
         try:
             self._scheduler.submit(req)
         except BaseException as e:
+            dev = req.dev = None
             with self._lock:
                 self._leaders.pop(key, None)
                 self._note_if_empty()
@@ -513,6 +574,16 @@ class YCHGService:
         # "accepted", so submitted - completed tracks real outstanding work
         self._recorder.record_submit()
         return fut
+
+    def _submit_stream(self) -> "torch.cuda.Stream":
+        """The calling thread's own CUDA stream on the engine's card (from
+        torch's pool), so that submitting threads' copies and digests wait
+        neither for one another nor for the dispatcher's kernels."""
+        stream = getattr(self._streams, "stream", None)
+        if stream is None:
+            stream = self._streams.stream = torch.cuda.Stream(
+                self._key_device)
+        return stream
 
     def _note_if_empty(self) -> None:
         """Under ``_lock``: stamp the moment the service came to hold no
@@ -609,8 +680,13 @@ class YCHGService:
         live = any(r.trace.enabled for r in requests)
         p0 = time.monotonic()
         f0 = minor_faults() if live else 0
-        stack = pad_stack([r.mask for r in requests], side, batch_size,
-                          np.dtype(dtype))
+        if requests[0].dev is not None:
+            # the masks are on the card: pad there, on this thread's stream
+            stack = pad_stack_device([r.dev for r in requests], side,
+                                     batch_size)
+        else:
+            stack = pad_stack([r.mask for r in requests], side, batch_size,
+                              np.dtype(dtype))
         p1 = time.monotonic()
         pad_meta = {"minflt": minor_faults() - f0} if live else {}
         self._recorder.observe_stage("pad_stack", bucket, p1 - p0)
@@ -651,7 +727,7 @@ class YCHGService:
             r.trace.add("scheduler.flush", t0, t1,
                         batch=batch_size, occupancy=len(requests))
         self._recorder.record_batch(
-            stack.shape, sum(r.mask.size for r in requests))
+            tuple(stack.shape), sum(r.mask.size for r in requests))
         return result
 
     def _complete(self, result: YCHGResult, requests: List[_Request]) -> None:
@@ -661,6 +737,8 @@ class YCHGService:
         # only the requests it missed
         try:
             result.block_until_ready()  # waits on the result's CUDA event
+            for req in requests:   # the pad that read them came before it
+                req.dev = None
             now = time.monotonic()
             if requests:
                 t_disp = requests[0].t_dispatch or now
@@ -696,6 +774,13 @@ class YCHGService:
             self._fail(requests, e)
 
     def _fail(self, requests: List[_Request], exc: Exception) -> None:
+        held = [r.dev for r in requests if r.dev is not None]
+        if held:
+            # a failed flush may have left the pad's reads of them queued on
+            # this thread's stream: let it drain before they go
+            torch.cuda.current_stream(held[0].device).synchronize()
+            for r in requests:
+                r.dev = None
         now = time.monotonic()
         for req in requests:
             with self._lock:

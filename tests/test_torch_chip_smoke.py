@@ -98,6 +98,8 @@ REHEARSAL = textwrap.dedent("""
     cs.PACKED_MAX_SEGMENTS, cs.PACKED_LONG_SEGMENTS = 4, (3, 5)
     cs.FLEET_BACKENDS = {"ychg": "torch", "ccl": "torch", "denoise": "torch"}
     cs.SLO_RES, cs.SLO_BATCH = 32, 2
+    cs.KEYHASH_SIDES, cs.KEYHASH_WIDE_SIDE = (16, 32, 64), 48
+    cs.KEYHASH_LENGTHS = (0, 1, 4095, 4097, 128 * 4096 + 1)
     cs.PIPELINE_TILE, cs.ANYRES_TILE = 16, 32
     cs.STREAM_VMEM_BUDGET = 16384   # the 320-row tall strip takes split-H
     cs.LM_SMOKE = True              # phase 8 on the reduced configs
@@ -167,6 +169,8 @@ REHEARSAL = textwrap.dedent("""
                               kp.packed_fused_plain)
     kp.ychg_packed_colscan = lambda p: kp.launch_colscan(p)
     kp.ychg_packed_fused = lambda p: kp.launch_fused(p)
+    from repro_torch.kernels import keyhash as kkh
+    kkh.launch = counted(kkh.LAUNCHES, "keyhash", kkh.digest)
 
     em._default_device = lambda: torch.device("cpu")
     init = em.Engine.__init__
@@ -199,6 +203,23 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
         assert k["launches"] > 0 and k["max_abs_err"] == 0, k["name"]
         assert k["library_ms"] is None and k["bound_by"] == "bytes"
     assert "serve denoise+ychg: 8 served results equal" in out.stdout
+    keyhash = json.loads(next(line for line in lines if line.startswith(
+        "keyhash: "))[len("keyhash: "):])
+    assert [r["shape"] for r in keyhash["rows"]] == [[16, 16], [32, 32],
+                                                     [64, 64]]
+    # 3 sides (a check, and the events' 2 + 75 calls; the trace answers
+    # here without a call), 2 wide dtypes, 5 lengths
+    assert keyhash["launches"] == 3 * (1 + 77) + 2 + 5
+    assert "time: keyhash 64^2 uint8 " in out.stdout
+    # a CPU engine's services key on the host: the main path's legs each
+    # checked, and no launch of the kernel there
+    keyed = json.loads(next(line for line in lines if line.startswith(
+        "keyed on the main path: 0 keyhash launches; every probe of these "
+        "legs keyed on the host: ")).split("on the host: ")[1])
+    assert set(keyed) == {"serve ychg[fused]", "serve ychg[cuda]",
+                          "serve ccl[cuda]", "serve denoise[cuda]",
+                          "serve denoise+ychg", "overload", "frontend"}
+    assert all(n > 0 for n in keyed.values())
     assert "serve ychg[cuda]: 24 served results equal" in out.stdout
     assert "as op ccl gives 50 components" in out.stdout
     assert "via the two-kernel split-H engine gives 50" in out.stdout
@@ -267,6 +288,7 @@ def test_chip_smoke_rehearsal_on_cpu(tmp_path):
             in out.stdout)
     assert ("byte-identical to an in-process Service(Engine()); completed "
             "per worker") in out.stdout
+    assert "every one keyed on the host {" in out.stdout
     assert "fleet: wire through the router against the direct" in out.stdout
     assert "rerouted to the survivor byte-identical" in out.stdout
     assert "served the repeat from the survivor's cache" in out.stdout

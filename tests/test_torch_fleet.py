@@ -19,6 +19,7 @@ end's answer to a sibling's ``cache_probe`` on entries that live on a
 device, and an RPC verb that raises.
 """
 
+import hashlib
 import http.client
 import json
 import os
@@ -64,6 +65,7 @@ from repro_torch.frontend import (  # noqa: E402
     YCHGClient,
     protocol,
 )
+from repro_torch.kernels import keyhash  # noqa: E402
 from repro_torch.service import ServiceConfig, YCHGService  # noqa: E402
 from repro_torch.service.cache import make_key, serialize_key  # noqa: E402
 from repro_torch.sharding import make_batch_mesh  # noqa: E402
@@ -174,8 +176,8 @@ def test_serialize_key_is_versioned_and_op_prefixed():
     for op in ("ychg", "ccl", "denoise", "denoise+ychg"):
         skey = serialize_key(make_key(mask, "cpu", cfg, op=op))
         assert skey.startswith(
-            len(b"ychg-key-v2").to_bytes(4, "big") + b"ychg-key-v2")
-        off = 4 + len(b"ychg-key-v2")
+            len(b"ychg-key-v3").to_bytes(4, "big") + b"ychg-key-v3")
+        off = 4 + len(b"ychg-key-v3")
         n = int.from_bytes(skey[off:off + 4], "big")
         assert skey[off + 4:off + 4 + n] == op.encode()
 
@@ -514,8 +516,27 @@ OPS = ["ychg", "ccl", "denoise", "denoise+ychg"]
 @pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: np.dtype(d).name)
 @pytest.mark.parametrize("op", OPS)
 def test_routing_key_equals_jax(dtype, op):
+    """The port's routing key is the JAX one component for component, but
+    for the version (v3: the digest is BLAKE2b's tree mode) and the
+    digest itself, which is the tree digest of the same bytes where the
+    JAX package takes a plain blake2b."""
     mask = _mask((13, 21), seed=90).astype(dtype)
-    assert routing_key(mask, op) == jrouting_key(mask, op)
+    got = _key_parts(routing_key(mask, op))
+    want = _key_parts(jrouting_key(mask, op))
+    assert (got[0], want[0]) == (b"ychg-key-v3", b"ychg-key-v2")
+    assert want[2] == hashlib.blake2b(mask.tobytes(), digest_size=16).digest()
+    assert got[2] == keyhash.digest_host(mask)
+    assert got[1] == want[1] and got[3:] == want[3:]
+
+
+def _key_parts(skey: bytes) -> list:
+    """A serialized key's length-prefixed components, in order."""
+    parts, off = [], 0
+    while off < len(skey):
+        n = int.from_bytes(skey[off:off + 4], "big")
+        parts.append(skey[off + 4:off + 4 + n])
+        off += 4 + n
+    return parts
 
 
 WIRE_SIDE = 48
