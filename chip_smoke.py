@@ -3286,25 +3286,30 @@ def keyhash_leg(np, torch, card: str) -> dict:
 
 
 def check_keyed(label: str, hits: int, misses: int, on_device: int,
-                on_host: int, launched=None) -> int:
+                on_host: int, pinned: int, pageable: int,
+                launched=None) -> int:
     """Every cache probe of a service (its hits and misses) keyed where its
     engine says: on the card when DEV is CUDA (one ``keyhash`` launch a
-    probe, where the launches are counted in this process, and none on the
-    host), on the host otherwise. Returns the probes."""
+    probe, where the launches are counted in this process, none on the
+    host, and every copy onto the card staged through page-locked memory,
+    none falling back to a pageable copy), on the host otherwise (no copy).
+    Returns the probes."""
     probes = hits + misses
     want = probes if DEV == "cuda" else 0
     check(probes > 0 and on_device == want and on_host == probes - want
-          and launched in (None, want),
+          and launched in (None, want) and pinned == want and pageable == 0,
           f"{label}: {probes} probes, {on_device} keyed on the card, "
-          f"{on_host} on the host, {launched} keyhash launches; want "
-          f"{want} on the card")
+          f"{on_host} on the host, {launched} keyhash launches, copies "
+          f"{pinned} staged and {pageable} pageable; want {want} on the "
+          f"card, each copy staged")
     return probes
 
 
 def metrics_keyed(label: str, m, launched: int) -> int:
     """:func:`check_keyed` on a service's metrics snapshot."""
     return check_keyed(label, m.cache_hits, m.cache_misses, m.keys_on_device,
-                       m.keys_on_host, launched)
+                       m.keys_on_host, m.key_copies_pinned,
+                       m.key_copies_pageable, launched)
 
 
 def main() -> int:
@@ -4477,7 +4482,8 @@ def main() -> int:
                     f"fleet worker {link.name}",
                     *(counter(wpage, f"ychg_{name}_total") for name in (
                         "cache_hits", "cache_misses", "keys_on_device",
-                        "keys_on_host")))
+                        "keys_on_host", "key_copies_pinned",
+                        "key_copies_pageable")))
             check(all(n > 0 for n in served.values()),
                   f"fleet: a worker served nothing: {served}")
             page = parse_prom_text(client.metrics_text())

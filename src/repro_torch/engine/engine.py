@@ -173,6 +173,72 @@ def host_tensor(imgs: Any) -> Tensor:
     return torch.from_numpy(a)
 
 
+#: Bytes a staged copy onto the card moves a piece, and the most a
+#: stager's page-locked slot holds: one 8192^2 uint8 mask goes in one piece
+#: (``scripts/time_h2d.py`` on one H100, PERF.md: the host link).
+STAGE_CHUNK_BYTES = 64 << 20
+
+
+def chunk_plan(nbytes: int, chunk: int) -> list[tuple[int, int]]:
+    """The ``[start, stop)`` byte ranges, in order, that a staged copy of
+    ``nbytes`` moves: whole chunks, then the rest; one piece where the data
+    is no larger than a chunk, none where it is empty."""
+    return [(i, min(i + chunk, nbytes)) for i in range(0, nbytes, chunk)]
+
+
+def pinned_buffer(nbytes: int) -> Tensor:
+    """``nbytes`` of page-locked host memory, from torch's caching host
+    allocator: a buffer freed goes back to its cache for the next one."""
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+class PinnedStager:
+    """Host data onto a CUDA card through one reused page-locked slot.
+
+    ``to_device(a, device)`` returns what ``host_tensor(a).to(device)``
+    does (dtype, shape and bytes; an array not in the machine's byte order
+    is refused alike), on the current stream. The data's bytes go in the
+    pieces of :func:`chunk_plan`, each copied on the host into the slot,
+    then onto the card as a DMA from page-locked memory, which does not
+    hold the CUDA driver as a copy from pageable memory does, and waited
+    for before the slot is refilled. When ``to_device`` returns, the bytes
+    are on the card and ``a`` may be overwritten.
+
+    The slot holds the largest piece put in it so far (at most
+    ``STAGE_CHUNK_BYTES``, as the module has it when the stager is made).
+    ``reserve(nbytes)`` makes the slot that ``nbytes`` needs and raises
+    ``RuntimeError`` where page-locked memory cannot be had, the slot left
+    as it was; ``to_device`` reserves first. One stager serves one thread;
+    its slot goes back to torch's host cache when it is dropped.
+    """
+
+    def __init__(self):
+        self.chunk = STAGE_CHUNK_BYTES
+        self._slot: Optional[Tensor] = None
+
+    def reserve(self, nbytes: int) -> None:
+        n = min(nbytes, self.chunk)
+        if n and (self._slot is None or self._slot.numel() < n):
+            self._slot = pinned_buffer(n)
+
+    def to_device(self, imgs: Any, device: Any) -> Tensor:
+        a = np.ascontiguousarray(imgs)
+        dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype  # byte order
+        self.reserve(a.nbytes)
+        out = torch.empty(a.shape, dtype=dtype, device=device)
+        src = a.reshape(-1).view(np.uint8)
+        dst = out.reshape(-1).view(torch.uint8)
+        stream = (torch.cuda.current_stream(out.device) if out.is_cuda
+                  else None)
+        for i, j in chunk_plan(src.size, self.chunk):
+            slot = self._slot[:j - i]
+            np.copyto(slot.numpy(), src[i:j])
+            dst[i:j].copy_(slot, non_blocking=True)
+            if stream is not None:
+                stream.synchronize()   # on the card, and the slot free
+        return out
+
+
 def _numpy_dtype_to_torch(name: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
 

@@ -463,6 +463,12 @@ class FrontendServer:
                   "cache probes whose content digest was taken on the card")
         b.counter("ychg_keys_on_host_total", m.keys_on_host,
                   "cache probes whose content digest was taken on the host")
+        b.counter("ychg_key_copies_pinned_total", m.key_copies_pinned,
+                  "copies onto the card for a key staged through "
+                  "page-locked memory")
+        b.counter("ychg_key_copies_pageable_total", m.key_copies_pageable,
+                  "copies onto the card for a key that fell back to "
+                  "pageable memory")
         b.header("ychg_shed_bucket_total", "counter",
                  "sheds attributed to the rejected request's bucket")
         for bucket, count in m.shed_by_bucket:

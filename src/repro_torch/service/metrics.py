@@ -114,6 +114,10 @@ class ServiceMetrics:
     # without a mesh) and on the host (every other engine)
     keys_on_device: int = 0
     keys_on_host: int = 0
+    # of the copies onto the card for those probes, the ones staged through
+    # page-locked slots and the ones that fell back to a pageable copy
+    key_copies_pinned: int = 0
+    key_copies_pageable: int = 0
     # traffic-class/tenant attribution (docs/traffic.md): every shed also
     # lands in shed_by_class; quota sheds additionally in shed_by_tenant;
     # shed_deadline/shed_quota split the total by the check that tripped
@@ -162,6 +166,8 @@ class MetricsRecorder:
         self.batches = 0
         self.keys_on_device = 0
         self.keys_on_host = 0
+        self.key_copies_pinned = 0
+        self.key_copies_pageable = 0
         self._latency_hists: Dict[Any, Histogram] = {}
         self._stage_hists: Dict[Tuple[str, Any, Optional[str]],
                                 Histogram] = {}
@@ -190,13 +196,20 @@ class MetricsRecorder:
             if self._t_first is None:
                 self._t_first = time.monotonic()
 
-    def record_key(self, on_device: bool) -> None:
-        """One probe's digest taken, on the card or on the host."""
+    def record_key(self, on_device: bool,
+                   pinned: Optional[bool] = None) -> None:
+        """One probe's digest taken, on the card or on the host; ``pinned``
+        says how its copy onto the card went (None where there was none)."""
         with self._lock:
             if on_device:
                 self.keys_on_device += 1
             else:
                 self.keys_on_host += 1
+            if pinned is not None:
+                if pinned:
+                    self.key_copies_pinned += 1
+                else:
+                    self.key_copies_pageable += 1
 
     def record_coalesced(self) -> None:
         with self._lock:
@@ -330,6 +343,8 @@ class MetricsRecorder:
                 peer_misses=peer_misses,
                 keys_on_device=self.keys_on_device,
                 keys_on_host=self.keys_on_host,
+                key_copies_pinned=self.key_copies_pinned,
+                key_copies_pageable=self.key_copies_pageable,
                 scene_tiles_done=scene_tiles_done,
                 scene_tiles_total=scene_tiles_total,
                 scene_resumes=scene_resumes,

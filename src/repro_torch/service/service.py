@@ -44,7 +44,12 @@ dispatcher's device work (unless backpressure deliberately blocks it at
 The key's content digest (``service.cache``, ``kernels.keyhash``) is taken
 where the engine's device says: a CUDA engine without a mesh copies the
 mask onto the card on the submitting thread, on a CUDA stream of that
-thread's own, and digests the copy there with the ``keyhash`` kernel; the
+thread's own, staged through a page-locked slot of that thread's own
+(``engine.PinnedStager``: a host copy into the slot, then a DMA from it;
+the pageable copy, counted, where page-locked memory cannot be had;
+the slot holds up to ``engine.STAGE_CHUNK_BYTES`` a live submitting
+thread, and goes back to torch's host cache when the thread ends), and
+digests the copy there with the ``keyhash`` kernel; the
 request then carries the device tensor, and the flush pads on the card
 (``batching.pad_stack_device``), with nothing left to copy. Every other
 engine (the CPU, a meshed engine) digests the host array with ``hashlib``
@@ -54,14 +59,16 @@ for each request from its submit until its batch's result is ready, for
 those admitted and for the producers parked at the admission gate alike.
 ``max_queue_depth`` (or ``bucket_queue_depth``) bounds the admitted ones,
 the callers' threads the rest (one a thread); with neither bound the
-device memory grows with the queue (docs/traffic.md). A bound matters for
-the rate too: a copy from pageable memory holds the CUDA driver, and
-submitting threads whose copies follow one another without a pause keep
-the scheduler thread's device calls waiting, for seconds on an H100; a
-producer parked at a bound makes no copy.
+device memory grows with the queue (docs/traffic.md). A copy from pageable
+memory, the fallback, holds the CUDA driver: submitting threads whose
+pageable copies follow one another without a pause keep the scheduler
+thread's device calls waiting, for seconds on an H100. The staged copy's
+DMA does not hold it.
 
 Spans cut each host stage at its edges (docs/observability.md): the probe
-into ``cache.key_copy`` (the copy onto the card, where there is one) and
+into ``cache.key_copy`` (the copy onto the card, where there is one; its
+``pinned`` meta says 1 where it was staged, else 0, and its ``copy`` meta
+``staged``, ``pageable``, or ``none`` where the key is made on the host) and
 ``cache.key_hash`` (its ``where`` meta says ``device`` or ``host``), the
 flush into ``scheduler.pad_stack`` and ``scheduler.h2d``, the launch being
 the rest.
@@ -82,7 +89,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine import Engine, YCHGResult
-from repro_torch.engine.engine import host_tensor
+from repro_torch.engine.engine import PinnedStager, host_tensor
 from repro_torch.engine.ops import (
     PIPELINE_SEP,
     pipeline_op_key,
@@ -429,19 +436,32 @@ class YCHGService:
                                     self.config.bucket_sides_for(op_key))
             bucket = (op_key, side, str(a.dtype))
             if self._key_device is not None:
-                # the one copy onto the card, then its digest there, on
-                # this thread's stream, which the kernel's wrapper waits
-                # for (and for no other)
-                with torch.cuda.stream(self._submit_stream()):
-                    dev = host_tensor(a).to(self._key_device)
+                # the one copy onto the card, staged through this thread's
+                # page-locked slot (the pageable copy where it cannot be
+                # had), then its digest there, on this thread's stream,
+                # which the kernel's wrapper waits for (and for no other)
+                stream, stager = self._submit_stream()
+                with torch.cuda.stream(stream):
+                    try:
+                        stager.reserve(a.nbytes)
+                        pinned = True
+                    except RuntimeError:   # counted, and on the span
+                        pinned = False
+                    dev = (stager.to_device(a, self._key_device) if pinned
+                           else host_tensor(a).to(self._key_device))
                     t_copy = time.monotonic()
-                    copy_meta = ({"minflt": minor_faults() - f0} if live
-                                 else {})
+                    copy_meta = ({"minflt": minor_faults() - f0,
+                                  "pinned": int(pinned),
+                                  "copy": ("staged" if pinned
+                                           else "pageable")}
+                                 if live else {})
                     digest = keyhash.digest(dev)
             else:
+                # no copy onto a card, so none staged
+                pinned = None
                 t_copy = time.monotonic()
-                copy_meta = ({"minflt": minor_faults() - f0} if live
-                             else {})
+                copy_meta = ({"minflt": minor_faults() - f0, "pinned": 0,
+                              "copy": "none"} if live else {})
                 digest = keyhash.digest(a)
             t_hash = time.monotonic()
             key = make_key(a, backend, self.engine.config,
@@ -452,7 +472,7 @@ class YCHGService:
                 self._submitting -= 1
                 self._note_if_empty()
             raise
-        self._recorder.record_key(dev is not None)
+        self._recorder.record_key(dev is not None, pinned)
         fut: "Future[YCHGResult]" = Future()
         cached = None
         outcome = "miss"
@@ -575,15 +595,17 @@ class YCHGService:
         self._recorder.record_submit()
         return fut
 
-    def _submit_stream(self) -> "torch.cuda.Stream":
+    def _submit_stream(self) -> Tuple["torch.cuda.Stream", PinnedStager]:
         """The calling thread's own CUDA stream on the engine's card (from
         torch's pool), so that submitting threads' copies and digests wait
-        neither for one another nor for the dispatcher's kernels."""
-        stream = getattr(self._streams, "stream", None)
-        if stream is None:
-            stream = self._streams.stream = torch.cuda.Stream(
-                self._key_device)
-        return stream
+        neither for one another nor for the dispatcher's kernels; and its
+        stager, whose page-locked slot goes back to torch's host cache when
+        the thread ends."""
+        local = self._streams
+        if getattr(local, "stream", None) is None:
+            local.stream = torch.cuda.Stream(self._key_device)
+            local.stager = PinnedStager()
+        return local.stream, local.stager
 
     def _note_if_empty(self) -> None:
         """Under ``_lock``: stamp the moment the service came to hold no

@@ -25,6 +25,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.engine import Engine  # noqa: E402
+from repro_torch.engine import engine as engine_mod  # noqa: E402
 from repro_torch.kernels import keyhash  # noqa: E402
 from repro_torch.service import (  # noqa: E402
     ServiceConfig,
@@ -235,7 +236,9 @@ def _backlog(svc, masks, measure):
 @pytest.fixture
 def card_path_on_cpu(monkeypatch):
     """The service's card path on CPU tensors: the CUDA stream calls do
-    nothing and the kernel's plain version stands in, counted."""
+    nothing, the copy's page-locked slots are plain host memory (on a
+    machine with a card too), and the kernel's plain version stands in,
+    counted."""
     calls = []
     plain = keyhash.digest
 
@@ -251,6 +254,8 @@ def card_path_on_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
+    monkeypatch.setattr(engine_mod, "pinned_buffer",
+                        lambda n: torch.empty(n, dtype=torch.uint8))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: Stream())
     monkeypatch.setattr(keyhash, "digest", digest)
@@ -270,6 +275,7 @@ def test_card_path_rehearsed_on_cpu(card_path_on_cpu, dtype):
     n = len(masks) + 2
     assert len(card_path_on_cpu) == n
     assert (m.keys_on_device, m.keys_on_host) == (n, 0)
+    assert (m.key_copies_pinned, m.key_copies_pageable) == (n, 0)
     assert m.coalesced == 1 and m.cache_hits == 1
 
 
@@ -445,6 +451,7 @@ def test_cuda_service_keys_on_the_card(card, dtype):
     n = len(masks) + 2
     assert keyhash.LAUNCHES["keyhash"] == n0 + n
     assert (m.keys_on_device, m.keys_on_host) == (n, 0)
+    assert (m.key_copies_pinned, m.key_copies_pageable) == (n, 0)
     assert m.coalesced == 1 and m.cache_hits == 1
 
 
