@@ -253,7 +253,6 @@ from __future__ import annotations
 import argparse
 import asyncio
 import contextlib
-import gc
 import glob
 import json
 import math
@@ -3003,10 +3002,6 @@ def lowering_phase(np, torch, card: str, serve_masks, scene) -> dict:
         return {k: v for m in modules for k, v in m.LAUNCHES.items()}
 
     def allocated() -> int:
-        # earlier phases' services are freed by the garbage collector (a
-        # service and its scheduler refer to each other), and a collection
-        # inside a cell's window would read as the cell freeing memory
-        gc.collect()
         torch.cuda.synchronize()
         return torch.cuda.memory_allocated()
 

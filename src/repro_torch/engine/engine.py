@@ -35,9 +35,11 @@ device (``engine.lowering``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 import warnings
-from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterable, Iterator, NamedTuple,
+                    Optional, Sequence)
 
 import numpy as np
 import torch
@@ -46,6 +48,7 @@ from repro_torch.core.ychg import YCHGSummary, narrow_wide_ints
 from repro_torch.engine import ops as engine_ops
 from repro_torch.engine import registry
 from repro_torch.engine.lowering import Lowered, ShapeDtype
+from repro_torch.kernels import keyhash
 from repro_torch.sharding.ychg import BatchMesh, pad_batch
 
 Tensor = torch.Tensor
@@ -239,6 +242,14 @@ class PinnedStager:
         return out
 
 
+class Placed(NamedTuple):
+    """A host mask as :meth:`Engine.put` gives it."""
+
+    tensor: Tensor   # on the engine's card, or a CPU tensor over the mask
+    digest: bytes    # ``keyhash``'s tree digest of the mask's bytes
+    copy: str        # how it reached the card: "staged", "pageable", "none"
+
+
 def _numpy_dtype_to_torch(name: str) -> torch.dtype:
     return torch.from_numpy(np.empty(0, np.dtype(name))).dtype
 
@@ -287,6 +298,7 @@ class Engine:
         # op -> (registry generation, resolved spec) — revalidated against
         # registry.generation() so late register_backend() calls still apply
         self._spec_cache: Dict[str, tuple[int, registry.BackendSpec]] = {}
+        self._puts = threading.local()   # put's stream and stager a thread
 
     # ------------------------------------------------------------- plumbing
 
@@ -318,16 +330,13 @@ class Engine:
     def _ingest(self, imgs: Any,
                 on_stage: Optional[Callable[[str, float, float],
                                             None]] = None) -> Tensor:
-        # a tensor on the engine's device passes through untouched; a tensor
-        # elsewhere, and host data, are copied onto it (never run in place).
-        # 64-bit integers keep their low 32 bits, as jnp.asarray does with
-        # x64 off: host data before the copy, tensors on the device
+        # host data becomes a CPU tensor over its array; 64-bit integers
+        # keep their low 32 bits, as jnp.asarray does with x64 off, before
+        # any copy; a tensor on the engine's device passes through
+        # untouched, any other is copied onto it (never run in place)
         t0 = time.monotonic()
-        if isinstance(imgs, torch.Tensor):
-            x = self._conform(imgs.to(self.device))
-        else:
-            x = self._conform(narrow_wide_ints(host_tensor(imgs)).to(
-                self.device))
+        x = imgs if isinstance(imgs, torch.Tensor) else host_tensor(imgs)
+        x = self._conform(narrow_wide_ints(x).to(self.device))
         if on_stage is not None:
             on_stage("ingest", t0, time.monotonic())
         return x
@@ -339,6 +348,53 @@ class Engine:
         if self._cast_dtype is not None and x.dtype != self._cast_dtype:
             x = narrow_wide_ints(x.to(self._cast_dtype))
         return x
+
+    @property
+    def puts_on_card(self) -> bool:
+        """Whether :meth:`put` copies a mask onto the card and digests it
+        there: a CUDA engine without a mesh, whose stacks stay on its card."""
+        return self.device.type == "cuda" and self.mesh is None
+
+    def put(self, mask: np.ndarray, *,
+            on_stage: Optional[Callable[[str, float, float],
+                                        None]] = None) -> Placed:
+        """A C-contiguous host mask as the tensor a batch is padded from,
+        with its ``keyhash`` digest.
+
+        Where :attr:`puts_on_card`, a copy on the card made through the
+        calling thread's page-locked slot (:class:`PinnedStager`; the
+        pageable ``.to`` where the slot cannot be had) and digested by the
+        ``keyhash`` kernel, both on that thread's own CUDA stream, so that
+        callers wait neither for one another nor for the dispatcher's
+        kernels; ``copy`` says ``"staged"`` or ``"pageable"``. Elsewhere
+        ``host_tensor(mask)``, digested by ``digest_host`` (bit for bit the
+        kernel's digest); ``copy`` is ``"none"``. ``on_stage(name, t0, t1)``
+        fires for ``"copy"``, then for ``"digest"``.
+        """
+        on_stage = on_stage or (lambda *_: None)
+        t0 = time.monotonic()
+        if self.puts_on_card:
+            local = self._puts
+            if getattr(local, "stager", None) is None:
+                local.stream = torch.cuda.Stream(self.device)
+                local.stager = PinnedStager()
+            with torch.cuda.stream(local.stream):
+                try:
+                    local.stager.reserve(mask.nbytes)
+                except RuntimeError:   # no page-locked memory to be had
+                    copy, x = "pageable", host_tensor(mask).to(self.device)
+                else:
+                    copy, x = "staged", local.stager.to_device(mask, self.device)
+                t1 = time.monotonic()
+                on_stage("copy", t0, t1)
+                digest = keyhash.digest(x)
+        else:
+            copy, x = "none", host_tensor(mask)
+            t1 = time.monotonic()
+            on_stage("copy", t0, t1)
+            digest = keyhash.digest_host(mask)
+        on_stage("digest", t1, time.monotonic())
+        return Placed(x, digest, copy)
 
     # ------------------------------------------------------------- dispatch
 

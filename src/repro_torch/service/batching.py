@@ -66,8 +66,8 @@ def pad_stack(masks: Sequence[np.ndarray], side: int, batch: int,
 
 def pad_stack_device(masks: Sequence[torch.Tensor], side: int,
                      batch: int) -> torch.Tensor:
-    """:func:`pad_stack` for masks already on the device: a zero-padded
-    (batch, side, side) stack of their dtype on their device.
+    """:func:`pad_stack` for tensors: a zero-padded (batch, side, side)
+    stack of their dtype on their device (the card's or the CPU).
 
     Only the pad region is zeroed (below and right of each mask, and the
     blank trailing images), and the copies run as bytes, so every dtype

@@ -196,17 +196,16 @@ class MetricsRecorder:
             if self._t_first is None:
                 self._t_first = time.monotonic()
 
-    def record_key(self, on_device: bool,
-                   pinned: Optional[bool] = None) -> None:
-        """One probe's digest taken, on the card or on the host; ``pinned``
-        says how its copy onto the card went (None where there was none)."""
+    def record_key(self, copy: str) -> None:
+        """One probe keyed: ``copy`` is how ``Engine.put`` moved its mask
+        onto the card (``"staged"`` or ``"pageable"``; the digest taken
+        there), or ``"none"``, the key made on the host."""
         with self._lock:
-            if on_device:
-                self.keys_on_device += 1
-            else:
+            if copy == "none":
                 self.keys_on_host += 1
-            if pinned is not None:
-                if pinned:
+            else:
+                self.keys_on_device += 1
+                if copy == "staged":
                     self.key_copies_pinned += 1
                 else:
                     self.key_copies_pageable += 1

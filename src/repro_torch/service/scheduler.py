@@ -604,7 +604,8 @@ class Scheduler:
 
         If the loop thread was never started (``autostart=False``), the
         drain runs inline on the caller — an admitted request is never
-        silently dropped."""
+        silently dropped. Once it has ended, the callbacks (the service's
+        bound methods) are let go, so a dropped service needs no collector."""
         with self._cond:
             first = not self._closed
             if first:
@@ -614,8 +615,12 @@ class Scheduler:
             started = self._started
         if started:
             self._thread.join(timeout)
+            if self._thread.is_alive():
+                return   # still draining past the timeout: it needs them
         elif first:
             self._drain()
+        self._dispatch = self._complete = self._fail = None
+        self._max_batch_for = None
 
     # --------------------------------------------------------------- the loop
 

@@ -27,10 +27,9 @@ independently testable:
      or raises :class:`ServiceOverloaded` (shed);
   3. a **double-buffered dispatch loop**: up to ``inflight_buckets`` bucket
      computations are outstanding at once, so the batching work for bucket
-     n+1 overlaps the device compute of bucket n. On a CUDA engine without
-     a mesh the masks are on the card already (see below) and the stack is
-     padded there; on any other engine the host stack goes to the engine,
-     whose ingest copies it onto the device. Completion
+     n+1 overlaps the device compute of bucket n. The stack is padded
+     where the masks are (``batching.pad_stack_device``), and the engine's
+     ingest copies it onto the device where it is not there. Completion
      waits on the result's CUDA event, fans
      per-request cropped results out to futures, and records true
      submit->ready latency — cache hits are counted separately and never
@@ -41,34 +40,21 @@ cache, and enqueues, so the caller's thread never blocks on the
 dispatcher's device work (unless backpressure deliberately blocks it at
 ``max_queue_depth``).
 
-The key's content digest (``service.cache``, ``kernels.keyhash``) is taken
-where the engine's device says: a CUDA engine without a mesh copies the
-mask onto the card on the submitting thread, on a CUDA stream of that
-thread's own, staged through a page-locked slot of that thread's own
-(``engine.PinnedStager``: a host copy into the slot, then a DMA from it;
-the pageable copy, counted, where page-locked memory cannot be had;
-the slot holds up to ``engine.STAGE_CHUNK_BYTES`` a live submitting
-thread, and goes back to torch's host cache when the thread ends), and
-digests the copy there with the ``keyhash`` kernel; the
-request then carries the device tensor, and the flush pads on the card
-(``batching.pad_stack_device``), with nothing left to copy. Every other
-engine (the CPU, a meshed engine) digests the host array with ``hashlib``
-and pads on the host. The two digests are one definition, bit for bit.
+``Engine.put`` gives the tensor a request carries and its key's content
+digest (``service.cache``): on a CUDA engine without a mesh a copy on the
+card made by the submitting thread, staged through its page-locked slot,
+and digested there; elsewhere a CPU tensor over the host array, digested
+with ``hashlib``.
 So on a CUDA engine a backlog lives in device memory: one copy of the mask
 for each request from its submit until its batch's result is ready, for
 those admitted and for the producers parked at the admission gate alike.
 ``max_queue_depth`` (or ``bucket_queue_depth``) bounds the admitted ones,
 the callers' threads the rest (one a thread); with neither bound the
-device memory grows with the queue (docs/traffic.md). A copy from pageable
-memory, the fallback, holds the CUDA driver: submitting threads whose
-pageable copies follow one another without a pause keep the scheduler
-thread's device calls waiting, for seconds on an H100. The staged copy's
-DMA does not hold it.
+device memory grows with the queue (docs/traffic.md).
 
 Spans cut each host stage at its edges (docs/observability.md): the probe
-into ``cache.key_copy`` (the copy onto the card, where there is one; its
-``pinned`` meta says 1 where it was staged, else 0, and its ``copy`` meta
-``staged``, ``pageable``, or ``none`` where the key is made on the host) and
+into ``cache.key_copy`` (to the end of ``put``'s copy; its ``pinned`` meta
+says 1 where it was staged, else 0, and its ``copy`` meta is ``put``'s) and
 ``cache.key_hash`` (its ``where`` meta says ``device`` or ``host``), the
 flush into ``scheduler.pad_stack`` and ``scheduler.h2d``, the launch being
 the rest.
@@ -89,19 +75,16 @@ import numpy as np
 import torch
 
 from repro_torch.engine import Engine, YCHGResult
-from repro_torch.engine.engine import PinnedStager, host_tensor
 from repro_torch.engine.ops import (
     PIPELINE_SEP,
     pipeline_op_key,
     split_pipeline_key,
     validate_pipeline,
 )
-from repro_torch.kernels import keyhash
 from repro_torch.obs import NULL_TRACE, maybe_trace, minor_faults
 from repro_torch.service.batching import (
     Bucket,
     crop_for,
-    pad_stack,
     pad_stack_device,
     pick_bucket_side,
 )
@@ -256,7 +239,12 @@ class ServiceConfig:
 
 @dataclasses.dataclass
 class _Request:
-    mask: np.ndarray          # C-contiguous host mask, native shape
+    # the mask as Engine.put gave it, native shape. The flush pads from it
+    # on the dispatcher's stream; it is let go once the batch's result is
+    # ready (or that stream has drained, on a failure), so that a device
+    # block, allocated on the submitter's stream, is never handed out again
+    # while the pad may still read it
+    mask: Optional[torch.Tensor]
     key: CacheKey
     bucket: Bucket
     t_submit: float
@@ -278,12 +266,6 @@ class _Request:
     klass: Optional[str] = None
     deadline_ms: Optional[float] = None
     tenant: Optional[str] = None
-    # the mask's copy on the card, where it was keyed there. The flush pads
-    # from it on the dispatcher's stream; it is let go once the batch's
-    # result is ready (or that stream has drained, on a failure), so that
-    # its block, allocated on the submitter's stream, is never handed out
-    # again while the pad may still read it
-    dev: Optional[torch.Tensor] = None
 
 
 class YCHGService:
@@ -322,13 +304,6 @@ class YCHGService:
         self._submitting = 0
         self._idle_since: Optional[float] = time.monotonic()
         self._scene_progress: Optional[Any] = None
-        # where submits key: on the engine's card when it is a CUDA device
-        # and no mesh splits the stacks, else on the host; and the CUDA
-        # stream of each submitting thread there
-        eng = self.engine
-        self._key_device = (eng.device if eng.device.type == "cuda"
-                            and eng.mesh is None else None)
-        self._streams = threading.local()
         self._scheduler = Scheduler(
             config.scheduler_config(),
             dispatch=self._dispatch,
@@ -422,10 +397,10 @@ class YCHGService:
         with self._lock:
             self._submitting += 1
             idle0, self._idle_since = self._idle_since, None
-        # the mask's copy on the card, if it is keyed there: every raise
-        # below lets it go first, since a raised exception's traceback keeps
-        # this frame, and so its locals, for as long as the caller keeps it
-        dev = None
+        # the mask as put on the card (or the host): every raise below lets
+        # it go first, since a raised exception's traceback keeps this
+        # frame, and so its locals, for as long as the caller keeps it
+        x = None
         try:
             f0 = minor_faults() if live else 0
             a = np.ascontiguousarray(np.asarray(mask))
@@ -435,44 +410,24 @@ class YCHGService:
             side = pick_bucket_side(a.shape,
                                     self.config.bucket_sides_for(op_key))
             bucket = (op_key, side, str(a.dtype))
-            if self._key_device is not None:
-                # the one copy onto the card, staged through this thread's
-                # page-locked slot (the pageable copy where it cannot be
-                # had), then its digest there, on this thread's stream,
-                # which the kernel's wrapper waits for (and for no other)
-                stream, stager = self._submit_stream()
-                with torch.cuda.stream(stream):
-                    try:
-                        stager.reserve(a.nbytes)
-                        pinned = True
-                    except RuntimeError:   # counted, and on the span
-                        pinned = False
-                    dev = (stager.to_device(a, self._key_device) if pinned
-                           else host_tensor(a).to(self._key_device))
-                    t_copy = time.monotonic()
-                    copy_meta = ({"minflt": minor_faults() - f0,
-                                  "pinned": int(pinned),
-                                  "copy": ("staged" if pinned
-                                           else "pageable")}
-                                 if live else {})
-                    digest = keyhash.digest(dev)
-            else:
-                # no copy onto a card, so none staged
-                pinned = None
-                t_copy = time.monotonic()
-                copy_meta = ({"minflt": minor_faults() - f0, "pinned": 0,
-                              "copy": "none"} if live else {})
-                digest = keyhash.digest(a)
-            t_hash = time.monotonic()
+            edge: Dict[str, Any] = {}
+
+            def on_stage(name: str, s0: float, s1: float) -> None:
+                edge[name] = s1
+                if live and name == "copy":
+                    edge["minflt"] = minor_faults() - f0
+
+            x, digest, copy = self.engine.put(a, on_stage=on_stage)
+            t_copy, t_hash = edge["copy"], edge["digest"]
             key = make_key(a, backend, self.engine.config,
                            self.engine.mesh, op=op_key, digest=digest)
         except BaseException:
-            dev = None
+            x = None
             with self._lock:
                 self._submitting -= 1
                 self._note_if_empty()
             raise
-        self._recorder.record_key(dev is not None, pinned)
+        self._recorder.record_key(copy)
         fut: "Future[YCHGResult]" = Future()
         cached = None
         outcome = "miss"
@@ -484,7 +439,7 @@ class YCHGService:
             self._submitting -= 1
             if self._closed:
                 self._note_if_empty()
-                dev = None
+                x = None
                 raise RuntimeError("service is closed")
             cached = self.cache.get(key)
             if cached is not None:
@@ -499,11 +454,10 @@ class YCHGService:
                     self._recorder.record_coalesced()
                     outcome = "coalesced"
                 else:
-                    req = _Request(mask=a, key=key, bucket=bucket,
+                    req = _Request(mask=x, key=key, bucket=bucket,
                                    t_submit=time.monotonic(), futures=[fut],
                                    trace=tr, own_trace=own, klass=klass,
-                                   deadline_ms=deadline_ms, tenant=tenant,
-                                   dev=dev)
+                                   deadline_ms=deadline_ms, tenant=tenant)
                     self._leaders[key] = req
             self._note_if_empty()
         t_probe1 = time.monotonic()
@@ -514,9 +468,11 @@ class YCHGService:
         if idle0 is not None:
             tr.add("service.idle", idle0, t_probe0)
         tr.add("cache.probe", t_probe0, t_probe1, outcome=outcome)
-        tr.add("cache.key_copy", t_probe0, t_copy, **copy_meta)
+        if live:
+            tr.add("cache.key_copy", t_probe0, t_copy, minflt=edge["minflt"],
+                   pinned=int(copy == "staged"), copy=copy)
         tr.add("cache.key_hash", t_copy, t_hash,
-               where="device" if dev is not None else "host")
+               where="host" if copy == "none" else "device")
         if outcome == "hit":
             fut.set_result(cached)
             if own:
@@ -567,7 +523,7 @@ class YCHGService:
         try:
             self._scheduler.submit(req)
         except BaseException as e:
-            dev = req.dev = None
+            x = req.mask = None
             with self._lock:
                 self._leaders.pop(key, None)
                 self._note_if_empty()
@@ -594,18 +550,6 @@ class YCHGService:
         # "accepted", so submitted - completed tracks real outstanding work
         self._recorder.record_submit()
         return fut
-
-    def _submit_stream(self) -> Tuple["torch.cuda.Stream", PinnedStager]:
-        """The calling thread's own CUDA stream on the engine's card (from
-        torch's pool), so that submitting threads' copies and digests wait
-        neither for one another nor for the dispatcher's kernels; and its
-        stager, whose page-locked slot goes back to torch's host cache when
-        the thread ends."""
-        local = self._streams
-        if getattr(local, "stream", None) is None:
-            local.stream = torch.cuda.Stream(self._key_device)
-            local.stager = PinnedStager()
-        return local.stream, local.stager
 
     def _note_if_empty(self) -> None:
         """Under ``_lock``: stamp the moment the service came to hold no
@@ -683,7 +627,7 @@ class YCHGService:
     def _dispatch(self, bucket: Bucket, requests: List[_Request],
                   batch_size: int) -> YCHGResult:
         t0 = time.monotonic()
-        op_key, side, dtype = bucket
+        op_key, side, _ = bucket
         for r in requests:
             # queue wait: admitted -> this flush started assembling. The
             # submitter's t_admitted write may not have landed yet (the
@@ -702,13 +646,8 @@ class YCHGService:
         live = any(r.trace.enabled for r in requests)
         p0 = time.monotonic()
         f0 = minor_faults() if live else 0
-        if requests[0].dev is not None:
-            # the masks are on the card: pad there, on this thread's stream
-            stack = pad_stack_device([r.dev for r in requests], side,
-                                     batch_size)
-        else:
-            stack = pad_stack([r.mask for r in requests], side, batch_size,
-                              np.dtype(dtype))
+        # where the masks are (on the card: on this thread's stream)
+        stack = pad_stack_device([r.mask for r in requests], side, batch_size)
         p1 = time.monotonic()
         pad_meta = {"minflt": minor_faults() - f0} if live else {}
         self._recorder.observe_stage("pad_stack", bucket, p1 - p0)
@@ -749,7 +688,7 @@ class YCHGService:
             r.trace.add("scheduler.flush", t0, t1,
                         batch=batch_size, occupancy=len(requests))
         self._recorder.record_batch(
-            tuple(stack.shape), sum(r.mask.size for r in requests))
+            tuple(stack.shape), sum(r.mask.numel() for r in requests))
         return result
 
     def _complete(self, result: YCHGResult, requests: List[_Request]) -> None:
@@ -759,8 +698,9 @@ class YCHGService:
         # only the requests it missed
         try:
             result.block_until_ready()  # waits on the result's CUDA event
+            shapes = [req.mask.shape for req in requests]
             for req in requests:   # the pad that read them came before it
-                req.dev = None
+                req.mask = None
             now = time.monotonic()
             if requests:
                 t_disp = requests[0].t_dispatch or now
@@ -769,7 +709,7 @@ class YCHGService:
             crop = crop_for(requests[0].bucket[0]) if requests else None
             for row, req in enumerate(requests):
                 tc0 = time.monotonic()
-                out = crop(result, row, req.mask.shape)
+                out = crop(result, row, shapes[row])
                 # atomic with submit's cache-check/coalesce: insert before
                 # retiring the leader, so a duplicate in this instant hits
                 # the cache instead of re-dispatching the computation
@@ -780,7 +720,7 @@ class YCHGService:
                 tc1 = time.monotonic()
                 self._recorder.observe_stage("crop", req.bucket, tc1 - tc0)
                 self._recorder.record_complete(
-                    now - req.t_submit, req.mask.size, len(req.futures),
+                    now - req.t_submit, shapes[row].numel(), len(req.futures),
                     bucket=req.bucket)
                 # spans go on BEFORE the futures resolve: a waiter that
                 # owns this trace finishes it the moment its future fires
@@ -796,13 +736,13 @@ class YCHGService:
             self._fail(requests, e)
 
     def _fail(self, requests: List[_Request], exc: Exception) -> None:
-        held = [r.dev for r in requests if r.dev is not None]
-        if held:
+        held = [r.mask for r in requests if r.mask is not None]
+        if held and self.engine.puts_on_card:
             # a failed flush may have left the pad's reads of them queued on
             # this thread's stream: let it drain before they go
             torch.cuda.current_stream(held[0].device).synchronize()
-            for r in requests:
-                r.dev = None
+        for r in requests:
+            r.mask = None
         now = time.monotonic()
         for req in requests:
             with self._lock:

@@ -4,8 +4,9 @@ on the card.
 On the CPU: the host digest against a tree built here node by node from
 ``hashlib.blake2b`` calls, the wrapper's plain version against it, the
 key's sensitivity to one byte, the device pad against the host pad, and
-the service's card path rehearsed on CPU tensors (the kernel's plain
-version standing in, the CUDA stream calls stubbed). Tests marked ``card``
+the service's card path rehearsed on a CPU engine (``Engine.puts_on_card``
+patched, the kernel's plain version standing in, the CUDA stream calls
+stubbed). Tests marked ``card``
 hold the kernel and the service's card path on a CUDA card and skip
 elsewhere; run them there with ``python -m pytest --noconftest -q
 tests/test_torch_keyhash.py`` (this file imports no JAX).
@@ -235,10 +236,11 @@ def _backlog(svc, masks, measure):
 
 @pytest.fixture
 def card_path_on_cpu(monkeypatch):
-    """The service's card path on CPU tensors: the CUDA stream calls do
-    nothing, the copy's page-locked slots are plain host memory (on a
-    machine with a card too), and the kernel's plain version stands in,
-    counted."""
+    """The service's card path on a CPU engine, through what
+    ``Engine.put`` calls: the engine's predicate says yes, the CUDA stream
+    calls do nothing, the copy's page-locked slots are plain host memory
+    (on a machine with a card too), and the kernel's plain version stands
+    in, counted."""
     calls = []
     plain = keyhash.digest
 
@@ -247,17 +249,12 @@ def card_path_on_cpu(monkeypatch):
             calls.append(x.shape)
         return plain(x)
 
-    class Stream:
-        def synchronize(self):
-            calls.append("synchronize")
-
+    monkeypatch.setattr(Engine, "puts_on_card", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
     monkeypatch.setattr(engine_mod, "pinned_buffer",
                         lambda n: torch.empty(n, dtype=torch.uint8))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: Stream())
     monkeypatch.setattr(keyhash, "digest", digest)
     return calls
 
@@ -270,7 +267,6 @@ def test_card_path_rehearsed_on_cpu(card_path_on_cpu, dtype):
     masks = [(m * 3).astype(dtype) for m in RAGGED]
     cfg = ServiceConfig(bucket_sides=(64,), **HELD)
     with YCHGService(eng, cfg) as svc:
-        svc._key_device = eng.device   # key as a CUDA engine's service does
         m = _keyed_path_checks(svc, eng, masks, Engine(device="cpu"))
     n = len(masks) + 2
     assert len(card_path_on_cpu) == n
@@ -290,21 +286,29 @@ class _FailingEngine(Engine):
         return super().analyze_batch(stack, **kw)
 
 
-def test_card_path_failed_flush_drains_before_letting_go(card_path_on_cpu):
+def test_card_path_failed_flush_drains_before_letting_go(card_path_on_cpu,
+                                                         monkeypatch):
     """A flush that raises fails its requests, waits for the dispatcher's
     stream before letting their device copies go, and the service serves
     the next request."""
+    drains = []
+
+    class Stream:
+        def synchronize(self):
+            drains.append("synchronize")
+
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
     eng = _FailingEngine(device="cpu")
     cfg = ServiceConfig(bucket_sides=(64,), max_batch=4, max_delay_ms=1.0)
     with YCHGService(eng, cfg) as svc:
-        svc._key_device = eng.device
         with pytest.raises(RuntimeError, match="engine down"):
             svc.submit(RAGGED[0]).result(timeout=TIMEOUT)
-        assert card_path_on_cpu.count("synchronize") == 1
+        assert drains == ["synchronize"]
         eng.fail = False
         got = svc.submit(RAGGED[1]).result(timeout=TIMEOUT)
     _assert_same(got, Engine(device="cpu").analyze(RAGGED[1]))
-    assert card_path_on_cpu.count("synchronize") == 1
+    assert drains == ["synchronize"]
 
 
 def test_card_path_shed_request_keeps_no_copy(card_path_on_cpu,
@@ -326,7 +330,6 @@ def test_card_path_shed_request_keeps_no_copy(card_path_on_cpu,
                         overload_policy="shed", **HELD)
     shed = []
     with YCHGService(eng, cfg) as svc:
-        svc._key_device = eng.device
         first = svc.submit(RAGGED[0])   # waits in its batch until close
         for m in RAGGED[1:4]:
             with pytest.raises(ServiceOverloaded) as e:
@@ -353,7 +356,6 @@ def test_card_path_backlog_holds_one_copy_a_request(card_path_on_cpu,
     monkeypatch.setattr(keyhash, "digest", digest)
     svc = YCHGService(Engine(device="cpu"),
                       ServiceConfig(bucket_sides=(64,), **BACKLOG))
-    svc._key_device = svc.engine.device
     masks = [_mask((64, 64), seed=40 + i) for i in range(4)]
     held = _backlog(svc, masks,
                     lambda: sum(ref() is not None for ref in copies))

@@ -7,7 +7,9 @@ through the registry's call counters.
 """
 
 import argparse
+import gc
 import threading
+import weakref
 
 import numpy as np
 import pytest
@@ -148,6 +150,25 @@ def test_serve_cli_on_cpu(capsys):
     for res, m in zip(report.cold + report.warm, masks):
         assert int(res.n_hyperedges[0]) == int(
             ychg.hyperedge_count(torch.from_numpy(m)))
+
+
+def test_a_closed_service_is_freed_without_the_garbage_collector():
+    """Once closed, the scheduler lets go of the service's callbacks: a
+    used, closed and dropped service, and its cache of results, are freed
+    by reference counting alone."""
+    cfg = ServiceConfig(bucket_sides=(64,), max_batch=4, max_delay_ms=1.0)
+    gc.collect()
+    gc.disable()
+    try:
+        svc = YCHGService(Engine(device="cpu"), cfg)
+        for m in RAGGED[:3] + RAGGED[:1]:   # three misses and a hit
+            svc.analyze(m, timeout=TIMEOUT)
+        svc.close()
+        refs = weakref.ref(svc), weakref.ref(svc.cache)
+        del svc
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
 
 
 # ------------------------------------------------------ spans and stages

@@ -1,11 +1,14 @@
-"""The staged copy onto the card (``engine.PinnedStager``) and the service's
-submit copy through it.
+"""The staged copy onto the card (``engine.PinnedStager``), ``Engine.put``
+and the service's submit copy through it.
 
 On the CPU: the chunk plan, the stager on CPU tensors (its page-locked
 slot stood in for), an array not in the machine's byte order refused as
-``host_tensor`` refuses it, the service's card branch rehearsed with the
-stager, the fallback to a pageable copy, and a CPU engine's service,
-which keys on the host and stages nothing (``pinned=0``, ``copy="none"``).
+``host_tensor`` refuses it, ``Engine.put`` on CPU and meshed engines and
+its card branch rehearsed on a CPU engine (the engine's one predicate,
+``puts_on_card``, patched), the service through that branch, the fallback
+to a pageable copy, a CPU engine's service, which keys on the host and
+stages nothing (``pinned=0``, ``copy="none"``), and the ingest's narrowing
+of 64-bit integers before its copy.
 Tests marked ``card`` hold the staged copy to ``host_tensor(a).to(device)`` bit for bit
 and the service under concurrent submitters that reuse their buffers, on a
 CUDA card, and skip elsewhere; run them there with ``python -m pytest
@@ -34,6 +37,7 @@ from repro_torch.service import (  # noqa: E402
     YCHGService,
     make_key,
 )
+from repro_torch.sharding import make_batch_mesh  # noqa: E402
 
 TIMEOUT = 300.0
 FIELDS = ("runs", "cut_vertices", "transitions", "births", "deaths",
@@ -112,16 +116,21 @@ def test_chunk_plan_at_small_chunks(chunk):
 
 @pytest.fixture
 def staged_on_cpu(monkeypatch):
-    """The stager's slot plain host memory, and the service's CUDA stream
-    calls doing nothing: its card branch runs on CPU tensors through the
-    stager."""
+    """The stager's slot plain host memory (on a machine with a card
+    too)."""
     monkeypatch.setattr(engine_mod, "pinned_buffer",
                         lambda n: torch.empty(n, dtype=torch.uint8))
+
+
+@pytest.fixture
+def put_on_card_on_cpu(staged_on_cpu, monkeypatch):
+    """``Engine.put``'s card branch on a CPU engine: the engine's predicate
+    says yes and the branch's CUDA stream calls do nothing, so the copy
+    runs through the stager onto CPU tensors."""
+    monkeypatch.setattr(Engine, "puts_on_card", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "stream",
                         lambda s: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "Stream", lambda device=None: None)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: None)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -247,14 +256,14 @@ def test_cpu_engine_keys_as_before_and_stages_nothing(tracing):
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.float32, np.int64])
-def test_card_branch_stages_its_copy_on_cpu(staged_on_cpu, tracing, dtype):
+def test_card_branch_stages_its_copy_on_cpu(put_on_card_on_cpu, tracing,
+                                            dtype):
     """The service's card branch, rehearsed on CPU tensors: every copy
     staged (``pinned=1``, counted), the answers and keys the host's."""
     eng = Engine(device="cpu")
     masks = [(m * 3).astype(dtype) for m in RAGGED]
     tr = tracing.Trace()
     with YCHGService(eng, CFG) as svc:
-        svc._key_device = eng.device   # key as a CUDA engine's service does
         m = _serve(svc, eng, masks, tr)
     metas = _trace_meta(tr, "cache.key_copy")
     assert [meta["pinned"] for meta in metas] == [1] * len(masks)
@@ -264,7 +273,7 @@ def test_card_branch_stages_its_copy_on_cpu(staged_on_cpu, tracing, dtype):
 
 
 def test_card_branch_falls_back_when_pinning_fails_on_cpu(
-        staged_on_cpu, tracing, monkeypatch):
+        put_on_card_on_cpu, tracing, monkeypatch):
     """Where page-locked slots cannot be had, each request takes the
     pageable copy, says so (``pinned=0``) and is counted; the thread's
     next submit tries again, and stages once the slots can be had."""
@@ -275,7 +284,6 @@ def test_card_branch_falls_back_when_pinning_fails_on_cpu(
     eng = Engine(device="cpu")
     tr = tracing.Trace()
     with YCHGService(eng, CFG) as svc:
-        svc._key_device = eng.device
         m = _serve(svc, eng, RAGGED[:3], tr)
         assert (m.key_copies_pinned, m.key_copies_pageable) == (0, 3)
         monkeypatch.setattr(engine_mod, "pinned_buffer",
@@ -289,6 +297,91 @@ def test_card_branch_falls_back_when_pinning_fails_on_cpu(
     assert (m.key_copies_pinned, m.key_copies_pageable) == (
         len(RAGGED) - 3, 3)
     assert m.keys_on_device == len(RAGGED)
+
+
+def _engines():
+    """A CPU engine, and a meshed CUDA engine (built without a card): the
+    two kinds whose ``put`` keeps the mask on the host."""
+    return [Engine(device="cpu"),
+            Engine(device="cuda:0",
+                   mesh=make_batch_mesh(devices=["cuda:0", "cuda:1"]))]
+
+
+def test_put_on_the_card_only_without_a_mesh():
+    assert [e.puts_on_card for e in _engines()] == [False, False]
+    assert Engine(device="cuda").puts_on_card
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("which", [0, 1])
+def test_put_keeps_the_mask_on_the_host_off_the_card(dtype, which):
+    """On CPU and meshed engines: a CPU tensor of the mask, ``copy``
+    ``"none"``, the digest ``digest_host``'s."""
+    a = _valued((33, 40), dtype, seed=which)
+    x, digest, copy = _engines()[which].put(a)
+    _same_tensor(x, host_tensor(a))
+    assert copy == "none"
+    assert digest == keyhash.digest_host(a)
+
+
+def test_put_shares_a_writable_array_and_copies_a_read_only_one():
+    a = _valued((40, 50), np.uint8, seed=4)
+    x = Engine(device="cpu").put(a).tensor
+    assert np.shares_memory(x.numpy(), a)
+    ro = a.copy()
+    ro.flags.writeable = False
+    y = Engine(device="cpu").put(ro).tensor
+    assert not np.shares_memory(y.numpy(), ro)
+    assert np.array_equal(y.numpy(), ro)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_put_card_branch_stages_and_digests_on_cpu(put_on_card_on_cpu,
+                                                   dtype):
+    """Rehearsed on a CPU engine: a copy of the mask (not the caller's
+    memory), staged, and the host's digest."""
+    a = _valued((33, 40), dtype, seed=5)
+    x, digest, copy = Engine(device="cpu").put(a)
+    _same_tensor(x, host_tensor(a))
+    assert not np.shares_memory(x.numpy(), a)
+    assert copy == "staged"
+    assert digest == keyhash.digest_host(a)
+
+
+@pytest.mark.parametrize("card", [False, True])
+def test_put_fires_copy_then_digest(request, card):
+    if card:
+        request.getfixturevalue("put_on_card_on_cpu")
+    stages = []
+    Engine(device="cpu").put(RAGGED[1],
+                             on_stage=lambda *s: stages.append(s))
+    (c, c0, c1), (d, d0, d1) = stages
+    assert (c, d) == ("copy", "digest")
+    assert c0 <= c1 == d0 <= d1
+
+
+def test_ingest_narrows_64_bit_integers_before_the_copy(monkeypatch):
+    """A CPU int64 tensor reaches the engine's device as int32: the copy
+    moves the narrowed bytes, as it does for host data."""
+    moved = []
+    to = torch.Tensor.to
+
+    def spy(self, *args, **kwargs):
+        out = to(self, *args, **kwargs)
+        if out.device != self.device:
+            moved.append(self.dtype)
+        return out
+
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    eng = Engine(device="meta")
+    wide = torch.tensor([[1, 2**32, 2**40 + 1]], dtype=torch.int64)
+    for imgs in (wide, wide.numpy()):
+        x = eng._ingest(imgs)
+        assert x.device.type == "meta" and x.dtype == torch.int32
+    assert moved == [torch.int32, torch.int32]
+    # on the CPU, the low 32 bits
+    got = Engine(device="cpu")._ingest(wide)
+    assert got.dtype == torch.int32 and got.tolist() == [[1, 0, 1]]
 
 
 # ---------------------------------------------------------------- the card
